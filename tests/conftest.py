@@ -38,6 +38,7 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: CNN-scale learning test, needs --runslow or RUNSLOW=1")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device; skips where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

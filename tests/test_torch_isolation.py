@@ -1,0 +1,51 @@
+"""The port and chip_smoke.py stand without JAX: in a process where jax, flax, optax
+and baselines_tpu cannot be imported, every module of baselines_tpu_torch imports, and
+chip_smoke.py, finding no card, exits nonzero with its "no CUDA device" message rather
+than an ImportError."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = "import sys\nfor m in ('jax', 'flax', 'optax', 'baselines_tpu'):\n    sys.modules[m] = None\n"
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", BLOCKED + code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_port_module_imports_without_jax():
+    proc = _run(
+        "import importlib, pkgutil\n"
+        "import baselines_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(baselines_tpu_torch.__path__,"
+        " 'baselines_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25
+
+
+def test_chip_smoke_without_a_card_exits_nonzero_before_importing_anything():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so chip_smoke.py would run")
+    proc = _run(
+        "import runpy\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit code', e.code)\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "exit code 1" in proc.stdout
+    assert "no CUDA device" in proc.stderr
+    assert "ImportError" not in proc.stderr and '"ok"' not in proc.stdout
