@@ -12,3 +12,10 @@ def explained_variance(ypred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     vary = torch.var(y, correction=0)
     ev = 1.0 - torch.var(y - ypred, correction=0) / vary
     return torch.where(vary == 0, torch.full_like(ev, float("nan")), ev)
+
+
+def huber_loss(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """Quadratic within |x| <= delta, linear outside (tf_util.py:39-49)."""
+    abs_x = torch.abs(x)
+    quad = torch.clamp(abs_x, max=delta)
+    return 0.5 * quad * quad + delta * (abs_x - quad)

@@ -12,11 +12,37 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from baselines_tpu_torch.envs.spaces import Discrete
+from baselines_tpu_torch.envs.spaces import Box, Discrete
 from baselines_tpu_torch.nn.distributions import CategoricalPd
 from baselines_tpu_torch.nn.networks import NatureCNNS2D, _ortho, get_network
 from baselines_tpu_torch.ops.fused_cnn import fused_cnn_forward, pack_params
+
+
+def encode_observation(space, obs: torch.Tensor) -> torch.Tensor:
+    """input.py:43-63: one-hot f32 for ``Discrete``; a ``Box`` passes through (the
+    networks divide u8 images by 255)."""
+    if isinstance(space, Discrete):
+        return F.one_hot(obs.long(), space.n).to(torch.float32)
+    if isinstance(space, Box):
+        return obs
+    raise NotImplementedError(f"the port cannot encode observations for {space!r} yet")
+
+
+def uses_fused_kernel(network: nn.Module) -> bool:
+    """Whether the act step of ``network`` runs through the fused CNN kernel: the
+    space-to-depth Nature CNN in bf16."""
+    return isinstance(network, NatureCNNS2D) and network.dtype == torch.bfloat16
+
+
+def act_latent(network: nn.Module, obs: torch.Tensor, packed=None) -> torch.Tensor:
+    """The f32 latent of the act step: the fused CNN kernel on ``packed`` (weights
+    packed from the current params when None) where ``uses_fused_kernel``, else the
+    network's own forward."""
+    if uses_fused_kernel(network):
+        return fused_cnn_forward(obs, pack_params(network) if packed is None else packed)
+    return network(obs)
 
 
 class PolicyValueNet(nn.Module):
@@ -40,31 +66,28 @@ class Policy:
         self.module = module
         self.ob_space = ob_space
         self.ac_space = ac_space
-        net = module.network
-        self.uses_kernel = isinstance(net, NatureCNNS2D) and net.dtype == torch.bfloat16
+
+    @property
+    def uses_kernel(self) -> bool:
+        return uses_fused_kernel(self.module.network)
 
     def pack(self):
         """The fused kernel's weights, packed from the current params, or None when
         the network does not run through the kernel."""
         return pack_params(self.module.network) if self.uses_kernel else None
 
-    def _latent(self, obs: torch.Tensor, packed) -> torch.Tensor:
-        if self.uses_kernel:
-            return fused_cnn_forward(obs, self.pack() if packed is None else packed)
-        return self.module.network(obs)
-
     @torch.no_grad()
     def step(self, obs: torch.Tensor, draws, packed=None):
         """(action, value, neglogp) (policies.py:77-96); ``packed`` is ``pack()``'s
         result, taken once for a rollout."""
-        logits, value = self.module.heads(self._latent(obs, packed))
+        logits, value = self.module.heads(act_latent(self.module.network, obs, packed))
         pd = CategoricalPd(logits)
         action = pd.sample(draws.uniform(logits.shape, 1e-10, 1.0))
         return action, value, pd.neglogp(action)
 
     @torch.no_grad()
     def value(self, obs: torch.Tensor, packed=None) -> torch.Tensor:
-        return self.module.heads(self._latent(obs, packed))[1]
+        return self.module.heads(act_latent(self.module.network, obs, packed))[1]
 
 
 def build_policy(ob_space, ac_space, network: str = "cnn_s2d", *, device,

@@ -100,6 +100,13 @@ def library() -> ctypes.CDLL:
         lib.btt_gather_rows.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
                                         ctypes.c_longlong, vp]
         lib.btt_gather_rows.restype = ctypes.c_int
+        lib.btt_block_sums.argtypes = [vp, ctypes.c_longlong, vp, vp]
+        lib.btt_block_sums.restype = ctypes.c_int
+        lib.btt_stratified_search.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp,
+                                              vp]
+        lib.btt_stratified_search.restype = ctypes.c_int
+        lib.btt_stratified_search_max_blocks.argtypes = []
+        lib.btt_stratified_search_max_blocks.restype = ctypes.c_longlong
         lib.btt_error_string.argtypes = [ctypes.c_int]
         lib.btt_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -6,14 +6,24 @@
 Phases, each printing its seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit;
   2. build: nvcc builds the port's kernel library (seconds and -Xptxas -v lines);
-  3. the fused CNN forward kernel against its plain version, at batch 256 and 8192;
-  4. the row-gather kernel against x[idx], on the PPO obs and on one f32 field;
-  5. the main path: two full-width ppo2 updates (256 envs x 128 steps, cnn_s2d in bf16,
-     AtariSim-v0 packed 4x4 space-to-depth), whose launch counts show both kernels on
-     the path and whose logged losses must be finite.
-Then one JSON line with every kernel's numbers, and last the contract line
-{"ok": true, "device": {...}}. Any failed check raises, and the script exits nonzero.
-It exits nonzero before building anything when there is no CUDA device.
+  3. the fused CNN forward kernel against its plain version, at batch 64 (deepq's act
+     step), 256 (ppo2's rollout step) and 8192 (ppo2's minibatch);
+  4. the row-gather kernel against x[idx], on the PPO obs and one f32 field, and on the
+     deepq replay sample (256 rows of the 10000-slot ring);
+  5. the stratified sampler's two kernels (block sums, search) against their plain
+     version, at a million slots with 32 and 256 targets and at the deepq path's 10240
+     padded slots with 256 targets: bit for bit on integer priorities, within 2 slots
+     on random ones, and the sampled frequencies of one heavy slot;
+  6. main path 1: two full-width ppo2 updates (256 envs x 128 steps, cnn_s2d in bf16,
+     AtariSim-v0 packed 4x4 space-to-depth), whose launch counts show the CNN and
+     gather kernels on the path and whose logged losses must be finite;
+  7. main path 2: deepq with prioritized, dueling, double-Q replay at the Atari
+     defaults (64 envs, batch 256, cnn_s2d in bf16, 16384 steps, 193 training
+     iterations), whose launch counts show all four kernels on the path.
+Then one JSON line with every kernel's numbers (launches summed over both main paths,
+and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
+check raises, and the script exits nonzero. It exits nonzero before building anything
+when there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -54,6 +64,33 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, reps: int = 10) -> float:
+    """Mean device time of fn per call, from a CUDA graph of iters calls replayed reps
+    times. The host's cost of a call (Python, the wrapper's checks, the launch) is paid
+    at capture and not at replay, so a kernel that takes less time than that cost is
+    timed by itself; time_ms would time the host instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -78,10 +115,13 @@ def main() -> int:
             print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
                   file=sys.stderr)
             return 1
+        from baselines_tpu_torch.algos.dqn import dqn
+        from baselines_tpu_torch.algos.dqn.defaults import atari as dqn_atari_defaults
         from baselines_tpu_torch.algos.ppo.ppo import learn
         from baselines_tpu_torch.core import logger
         from baselines_tpu_torch.nn.networks import NatureCNNS2D
         from baselines_tpu_torch.ops import cuda_lib
+        from baselines_tpu_torch.ops import stratified_sample as ss
         from baselines_tpu_torch.ops.fused_cnn import (
             FC_IN, FC_OUT, fused_cnn_forward, pack_params, reference_forward,
         )
@@ -98,6 +138,16 @@ def main() -> int:
               f"CUDA {torch.version.cuda}")
         print(card, flush=True)
     dev = torch.device("cuda")
+
+    class RecordingOutput(logger.KVWriter):
+        """A logger output that keeps every dumped row."""
+
+        def __init__(self):
+            self.rows = []
+
+        def writekvs(self, kvs):
+            self.rows.append(dict(kvs))
+
     # the plain versions' f32 convolutions and products see only bf16 operands, which
     # TF32 holds exactly; full f32 is set all the same
     torch.backends.cudnn.allow_tf32 = False
@@ -111,8 +161,19 @@ def main() -> int:
             print(f"  {line}")
 
     kernels = {}
+    launchers = {"fused_cnn": fused_cnn_forward, "take_rows": take_rows,
+                 "block_sums": ss.block_sums, "stratified_search": ss.stratified_search}
+    counts = {}  # main path -> kernel -> launches
+
+    def reset_counts():
+        for fn in launchers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in launchers.items()}
+
     with Phase("fused_cnn vs plain"):
-        for batch in (256, 8192):
+        for batch in (64, 256, 8192):  # deepq's act step, ppo2's rollout and minibatch
             gen = torch.Generator(device=dev).manual_seed(batch)
             x = torch.randint(0, 256, (batch, 21, 21, 64), dtype=torch.uint8, device=dev,
                               generator=gen)
@@ -141,7 +202,7 @@ def main() -> int:
                   f"(tol {K1_REL_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"cuDNN bf16 module {library_ms:.4f} ms, bound {bms:.4f} ms ({by}) "
                   f"[{card}]", flush=True)
-            if batch == 256:  # the main path's shape
+            if batch == 256:  # ppo2's rollout step
                 kernels["fused_cnn"] = dict(
                     name="fused_cnn_forward", route="cuda",
                     source="baselines_tpu_torch/csrc/fused_cnn.cu",
@@ -183,25 +244,127 @@ def main() -> int:
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=library_ms,
         )
-        del obs, idx, field, got
+        # the deepq replay sample: 256 rows of the 10000-slot ring, obs and an f32 field
+        ring, ring_field = obs[:10000], field[:10000]
+        ridx = torch.randint(0, 10000, (256,), device=dev, generator=gen)
+        require(torch.equal(take_rows(ring, ridx), ring[ridx])
+                and torch.equal(take_rows(ring_field, ridx), ring_field[ridx]),
+                "take_rows: the replay sample differs from x[idx]")
+        ring_ms = graph_ms(lambda: take_rows(ring, ridx), 50)
+        ring_plain_ms = graph_ms(lambda: ring.index_select(0, ridx), 50)
+        ring_field_ms = graph_ms(lambda: take_rows(ring_field, ridx), 50)
+        ring_bms, _ = bound_ms(0, 2 * 256 * ring[0].numel() + 256 * 8)
+        print(f"take_rows replay sample (10000, 21, 21, 64) u8 by 256: bit-exact; device "
+              f"times: kernel {ring_ms:.4f} ms, index_select {ring_plain_ms:.4f} ms, bound "
+              f"{ring_bms:.4f} ms (bytes); f32 field {ring_field_ms:.4f} ms [{card}]",
+              flush=True)
+        del obs, idx, field, got, ring, ring_field
 
-    with Phase("main path: ppo2 learn, 2 updates of 256 x 128"):
-        class RecordingOutput(logger.KVWriter):
-            """A logger output that keeps every dumped row."""
+    with Phase("stratified_sample vs plain"):
+        def integer_priorities(gen, n, block_total=4096):
+            """Priorities in {0, 1, 2, 3} with runs of zeros and a last slot in each
+            block that brings the block's sum to block_total: every sum is exact, and
+            zero uniforms put the targets on block and slot boundaries."""
+            p = torch.randint(0, 4, (n // ss.BLOCK, ss.BLOCK), generator=gen, device=dev)
+            p = p.float()
+            p[:, 100:300] = 0.0
+            p[:, -1] = 0.0
+            p[:, -1] = block_total - p.sum(dim=1)
+            require(bool((p >= 0).all()), "stratified_sample: a negative test priority")
+            return p.reshape(-1).contiguous()
 
-            def __init__(self):
-                self.rows = []
+        for n, batch in ((2 ** 20, 32), (2 ** 20, 256), (10240, 256)):
+            gen = torch.Generator(device=dev).manual_seed(n + batch)
+            ints = integer_priorities(gen, n)
+            for u in (torch.zeros(batch, device=dev),
+                      torch.rand(batch, generator=gen, device=dev)):
+                got = ss.stratified_sample(ints, u, batch)
+                torch.cuda.synchronize()
+                require(got.dtype == torch.int32 and got.shape == (batch,),
+                        "stratified_sample: wrong output type or shape")
+                require(torch.equal(ss.block_sums(ints), ss.plain_block_sums(ints)),
+                        f"block_sums at N={n}: not bit-exact on integer priorities")
+                require(torch.equal(got, ss.plain_stratified_sample(ints, u, batch)),
+                        f"stratified_sample at N={n}, B={batch}: not bit-exact on integer "
+                        "priorities")
+            prios = torch.randn(n, generator=gen, device=dev).abs()
+            u = torch.rand(batch, generator=gen, device=dev)
+            got = ss.stratified_sample(prios, u, batch).long()
+            want = ss.plain_stratified_sample(prios, u, batch).long()
+            max_slots = int((got - want).abs().max())
+            n_diff = int((got != want).sum())
+            require(max_slots <= 2 and n_diff < 0.05 * batch,
+                    f"stratified_sample at N={n}, B={batch}: {n_diff} indices differ, by up "
+                    f"to {max_slots} slots")
+            heavy = torch.full((n,), 1e-3, device=dev)
+            heavy[7] = n * 1e-3  # about half the total mass
+            hits = sum(int((ss.stratified_sample(heavy, torch.rand(batch, generator=gen,
+                                                                   device=dev), batch) == 7).sum())
+                       for _ in range(20))
+            frac, expect = hits / (20 * batch), float(heavy[7] / heavy.sum())
+            require(abs(frac - expect) < 0.05, f"stratified_sample: slot 7 drawn {frac:.3f} "
+                    f"of the time, expected {expect:.3f}")
 
-            def writekvs(self, kvs):
-                self.rows.append(dict(kvs))
+            sums = ss.block_sums(prios)
+            sums_err = float((sums - ss.plain_block_sums(prios)).abs().max())
+            total = torch.cumsum(sums.double(), 0)[-1].float()
+            targets = ss.stratified_targets(total.view(1), u, batch)
+            # device times from CUDA graphs: each of these calls takes less device time
+            # than the host spends issuing it; eager_ms is the whole op called eagerly
+            eager_ms = time_ms(lambda: ss.stratified_sample(prios, u, batch), 200)
+            ms = graph_ms(lambda: ss.stratified_sample(prios, u, batch), 50)
+            sums_ms = graph_ms(lambda: ss.block_sums(prios), 50)
+            search_ms = graph_ms(lambda: ss.stratified_search(prios, sums, u, batch), 50)
+            plain_ms = graph_ms(lambda: ss.plain_stratified_sample(prios, u, batch), 10)
+            plain_sums_ms = graph_ms(lambda: ss.plain_block_sums(prios), 50)
+            plain_search_ms = graph_ms(lambda: ss.plain_search(prios, sums, u, batch), 10)
+            library_ms = graph_ms(
+                lambda: torch.searchsorted(torch.cumsum(prios, 0), targets, right=True), 50)
+            library_sums_ms = graph_ms(lambda: prios.view(-1, ss.BLOCK).sum(1), 50)
+            # bytes each function must move: every input read once, every output written
+            # once. The search reads only the blocks this run's targets land in (at most
+            # min(batch, nblocks) of them); the whole op reads every priority once.
+            nblocks = n // ss.BLOCK
+            hit_blocks = int(torch.unique(got // ss.BLOCK).numel())
+            bms, by = bound_ms(0, 4 * n + 8 * batch)
+            sums_bms, sums_by = bound_ms(0, 4 * n + 4 * nblocks)
+            search_bms, search_by = bound_ms(
+                0, 4 * nblocks + hit_blocks * 4 * ss.BLOCK + 8 * batch)
+            print(f"stratified_sample N={n} B={batch} [{card}]: integer priorities bit-exact "
+                  f"(zero and random uniforms); |randn|: {n_diff} of {batch} indices differ "
+                  f"from plain (max {max_slots} slots), block sums max abs err {sums_err:.3g}; "
+                  f"heavy slot {frac:.4f} vs {expect:.4f}; "
+                  f"device times: whole op {ms:.4f} ms (eager call {eager_ms:.4f}, plain "
+                  f"{plain_ms:.4f}, cumsum+searchsorted "
+                  f"{library_ms:.4f}, bound {bms:.6f} {by}); block_sums {sums_ms:.4f} ms "
+                  f"(plain {plain_sums_ms:.4f}, sum {library_sums_ms:.4f}, bound "
+                  f"{sums_bms:.6f}); search {search_ms:.4f} ms (plain {plain_search_ms:.4f}, "
+                  f"bound {search_bms:.6f}, {hit_blocks} of {nblocks} blocks hit)", flush=True)
+            if n == 10240:  # the deepq path's padded buffer and batch
+                shape = f"N={n}, B={batch}"
+                kernels["block_sums"] = dict(
+                    name="block_sums", route="cuda",
+                    source="baselines_tpu_torch/csrc/stratified_sample.cu",
+                    replaces="baselines_tpu/data/pallas_sampler.py:41", shape=shape,
+                    max_abs_err=sums_err, ms=sums_ms, plain_ms=plain_sums_ms, bound_ms=sums_bms,
+                    bound_by=sums_by, library_ms=library_sums_ms,
+                )
+                kernels["stratified_search"] = dict(
+                    name="stratified_search", route="cuda",
+                    source="baselines_tpu_torch/csrc/stratified_sample.cu",
+                    replaces="baselines_tpu/data/pallas_sampler.py:48", shape=shape,
+                    max_abs_err=float(max_slots), ms=search_ms, plain_ms=plain_search_ms,
+                    bound_ms=search_bms, bound_by=search_by, library_ms=None,
+                )
+            del ints, prios, heavy, got, want
 
+    with Phase("main path 1: ppo2 learn, 2 updates of 256 x 128"):
         recorder = RecordingOutput()
         logger.Logger.CURRENT = logger.Logger(
             dir=None, output_formats=[logger.HumanOutputFormat(sys.stdout), recorder])
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fused_cnn_forward.launches = 0
-        take_rows.launches = 0
+        reset_counts()
         start = time.perf_counter()
         model = learn(
             env_id="AtariSim-v0", network="cnn_s2d", dtype=torch.bfloat16,
@@ -210,9 +373,8 @@ def main() -> int:
         )
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - start
+        counts["ppo2"] = read_counts()
         k1, k2 = fused_cnn_forward.launches, take_rows.launches
-        kernels["fused_cnn"]["launches"] = k1
-        kernels["take_rows"]["launches"] = k2
         require(k1 >= 2 * 129, f"fused_cnn_forward launched {k1} times, expected >= 258")
         require(k2 >= 2 * 4 * 6, f"take_rows launched {k2} times, expected >= 48")
         require(len(recorder.rows) == 2, f"expected 2 logged rows, got {len(recorder.rows)}")
@@ -232,10 +394,74 @@ def main() -> int:
               f"peak device memory {peak / 2**30:.2f} GiB")
         print(f"logged keys [{card}]: {sorted(recorder.rows[-1])}", flush=True)
 
-    order = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    line = {"kernels": [{k: kernels[name][k] for k in order}
-                        for name in ("fused_cnn", "take_rows")]}
+    with Phase("main path 2: deepq learn, 16384 steps of 64 envs"):
+        # dqn/defaults.py:4-18 (Atari), with cnn_s2d in bf16 for conv_only (not ported),
+        # 64 envs and batch 256 as scripts/profile_dqn.py:49,85 runs deepq, and
+        # learning_starts cut from 10000 to 4096 so that 193 of the 256 iterations train
+        hparams = dict(dqn_atari_defaults(), env_id="AtariSim-v0", network="cnn_s2d",
+                       dtype=torch.bfloat16, env_kwargs={"s2d": 4}, num_envs=64,
+                       batch_size=256, chunk_size=64,
+                       total_timesteps=16384, learning_starts=4096, seed=0)
+        train_iters = sum(1 for k in range(1, 257) if 64 * k >= 4096)
+        recorder = RecordingOutput()
+        logger.Logger.CURRENT = logger.Logger(
+            dir=None, output_formats=[logger.HumanOutputFormat(sys.stdout), recorder])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        model = dqn.learn(**hparams)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts["deepq"] = read_counts()
+        c = counts["deepq"]
+        require(train_iters == 193, f"{train_iters} training iterations, expected 193")
+        require(c["fused_cnn"] >= 256, f"fused_cnn_forward launched {c['fused_cnn']} times, "
+                "expected >= 256")
+        require(c["block_sums"] == train_iters and c["stratified_search"] == train_iters,
+                f"the sampler ran {c['block_sums']} / {c['stratified_search']} times, expected "
+                f"{train_iters}")
+        require(c["take_rows"] >= 5 * train_iters,
+                f"take_rows launched {c['take_rows']} times, expected >= {5 * train_iters}")
+        state = model.state
+        replay = state.replay
+        prios = replay.priorities[:10000]
+        require(state.t == 16384 and state.n_target_syncs == 16,
+                f"t {state.t}, target syncs {state.n_target_syncs}: expected 16384, 16")
+        require(replay.buffer.size == 10000 and replay.buffer.ptr == 16384 % 10000,
+                "the replay ring did not wrap as expected")
+        require(bool(torch.isfinite(prios).all()) and bool((prios > 0).all()),
+                "a stored priority is not finite and positive")
+        changed = int((prios != 1.0).sum())
+        require(changed > 0, "no priority was updated")
+        require(not replay.priorities[10000:].any(), "a padding slot got a priority")
+        require(len(recorder.rows) == 2, f"expected 2 logged rows, got {len(recorder.rows)}")
+        for row in recorder.rows:
+            for key, val in row.items():
+                if key == "mean 100 episode reward" and row["episodes"] == 0:
+                    # no episode of 1000 steps ends in 256 steps of each env: the mean
+                    # of none is nan, as in the JAX package
+                    require(math.isnan(val), f"{key} = {val} with no episode finished")
+                else:
+                    require(math.isfinite(val), f"logged {key} = {val} is not finite")
+        with torch.no_grad():
+            q = model.policy.act_q_values(state.obs)
+        require(q.shape == (64, 6) and bool(torch.isfinite(q).all()),
+                "the trained net's q-values are not finite")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path 2 [{card}]: launches {c}; {train_iters} training iterations; "
+              f"{elapsed:.2f} s for 16384 env steps = {16384 / elapsed:.0f} env-steps/s "
+              f"(set-up included); logged fps {[r['fps'] for r in recorder.rows]}; "
+              f"{changed} of 10000 priorities updated, max priority "
+              f"{float(replay.max_priority):.4f}; peak device memory {peak / 2**30:.2f} GiB")
+        print(f"logged keys [{card}]: {sorted(recorder.rows[-1])}", flush=True)
+
+    for name, entry in kernels.items():
+        entry["launches_by_path"] = {path: counts[path][name] for path in counts}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = {"kernels": [{k: kernels[name][k] for k in order} for name in launchers]}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

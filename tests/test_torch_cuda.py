@@ -76,3 +76,84 @@ def test_take_rows_kernel_zeroes_rows_of_out_of_range_indices(dev):
     x = torch.ones((4, 5), device=dev)
     got = take_rows(x, torch.tensor([0, 4, -1, 3], device=dev))
     assert torch.equal(got.sum(dim=1).cpu(), torch.tensor([5.0, 0.0, 0.0, 5.0]))
+
+
+def _integer_priorities(gen, n, dev, block_total=4096):
+    """Integer priorities with runs of zeros and equal block sums (see
+    tests/test_torch_sampler.py): every sum is exact."""
+    p = torch.randint(0, 4, (n // 2048, 2048), generator=gen, device=dev).float()
+    p[:, 100:300] = 0.0
+    p[:, -1] = 0.0
+    p[:, -1] = block_total - p.sum(dim=1)
+    return p.reshape(-1).contiguous()
+
+
+@pytest.mark.parametrize("n,batch", [
+    (2 ** 20, 32), (2 ** 20, 256), (10240, 256),  # the shapes of chip_smoke.py
+    (2048, 64),  # one block
+    (6144, 45),  # a batch that is not a multiple of 32, nor of the 8 targets of a block
+])
+def test_stratified_sample_kernel_matches_plain(dev, n, batch):
+    """Bit for bit on integer priorities, with zero uniforms (targets on block and slot
+    boundaries) and random ones; within 2 slots, under 5 % differing, on |randn|."""
+    from baselines_tpu_torch.ops import stratified_sample as ss
+
+    gen = torch.Generator(device=dev).manual_seed(n + batch)
+    ints = _integer_priorities(gen, n, dev)
+    before = (ss.block_sums.launches, ss.stratified_search.launches)
+    for u in (torch.zeros(batch, device=dev), torch.rand(batch, generator=gen, device=dev)):
+        got = ss.stratified_sample(ints, u, batch)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (batch,)
+        assert torch.equal(ss.block_sums(ints), ss.plain_block_sums(ints))
+        assert torch.equal(got, ss.plain_stratified_sample(ints, u, batch))
+    assert (ss.block_sums.launches, ss.stratified_search.launches) == (before[0] + 4, before[1] + 2)
+    prios = torch.randn(n, generator=gen, device=dev).abs()
+    u = torch.rand(batch, generator=gen, device=dev)
+    got = ss.stratified_sample(prios, u, batch).long()
+    want = ss.plain_stratified_sample(prios, u, batch).long()
+    assert int((got - want).abs().max()) <= 2
+    assert float((got != want).float().mean()) < 0.05
+
+
+def test_prioritized_buffer_samples_through_the_kernel(dev):
+    """One whole PrioritizedReplayBuffer.sample on the card, with a capacity padded to
+    10240 slots: the kernel's indices equal the plain version's on
+    the same (integer) priorities, the batch is the rows at those indices and the
+    weights are finite and at most 1."""
+    from baselines_tpu_torch.data.prioritized import PrioritizedReplayBuffer
+    from baselines_tpu_torch.ops import stratified_sample as ss
+
+    class Uniforms:
+        def __init__(self, u):
+            self.u = u
+
+        def uniform(self, shape, low, high):
+            return self.u
+
+    cap, batch = 10000, 256
+    rb = PrioritizedReplayBuffer(cap, alpha=1.0)
+    item = {"obs": torch.zeros((21, 21, 64), dtype=torch.uint8, device=dev),
+            "reward": torch.zeros((), device=dev)}
+    state = rb.init(item)
+    assert state.priorities.shape == (10240,)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(3):
+        b = 4000
+        state = rb.add_batch(state, {
+            "obs": torch.randint(0, 256, (b, 21, 21, 64), dtype=torch.uint8, device=dev,
+                                 generator=gen),
+            "reward": torch.randn(b, generator=gen, device=dev)})
+    assert state.buffer.size == cap and state.buffer.ptr == 2000
+    new = torch.randint(1, 5, (cap,), generator=gen, device=dev).float()
+    state = rb.update_priorities(state, torch.arange(cap, device=dev), new)
+    u = torch.rand(batch, generator=gen, device=dev)
+    before = ss.stratified_search.launches
+    got, idx, weights = rb.sample(state, Uniforms(u), batch, beta=0.4)
+    torch.cuda.synchronize()
+    assert ss.stratified_search.launches == before + 1
+    want = ss.plain_stratified_sample(state.priorities, u, batch).long().clamp(max=cap - 1)
+    assert torch.equal(idx, want)
+    assert torch.equal(got["obs"], state.buffer.data["obs"][idx])
+    assert torch.equal(got["reward"], state.buffer.data["reward"][idx])
+    assert bool(torch.isfinite(weights).all()) and float(weights.max()) <= 1.0
