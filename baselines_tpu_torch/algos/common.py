@@ -1,6 +1,7 @@
 """Shared learner scaffolding (counterpart of baselines_tpu/algos/common.py).
 
 - ``build_env``: env id -> monitored vector env (VecTorchEnv -> VecMonitor -> VecS2D).
+- ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
   returns a time-major trajectory.
 - ``ClipAdam``: clip by global norm, then Adam, then ``p -= lr * u``, with the
@@ -16,6 +17,13 @@ import torch
 
 from baselines_tpu_torch.envs.registry import make_env
 from baselines_tpu_torch.envs.vec import VecMonitor, VecS2D, VecTorchEnv
+
+
+def not_ported(algo: str, option: str, where: str):
+    """Raise for a keyword of the JAX package's ``learn`` whose part is not ported yet,
+    naming the item of ROADMAP.md's Queue 1 that brings it."""
+    raise NotImplementedError(f"{algo}'s {option} is not ported yet; it comes with {where} "
+                              "of ROADMAP.md's Queue 1")
 
 
 def build_env(env_id: str, num_envs: int, *, device, s2d: int = 0):

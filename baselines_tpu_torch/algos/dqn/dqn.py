@@ -30,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env
+from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, not_ported
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import huber_loss
@@ -228,11 +228,6 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
     return iteration
 
 
-def _not_ported(option: str, where: str):
-    raise NotImplementedError(f"deepq's {option} is not ported yet; it comes with {where} "
-                              "of ROADMAP.md's Queue 1")
-
-
 def learn(
     *,
     env=None,
@@ -280,11 +275,11 @@ def learn(
     (for example ``dtype=torch.bfloat16``). ``chunk_timing``, when a list, gets the
     wall time after each chunk, the device synchronized."""
     if param_noise:
-        _not_ported("param_noise", "slice 5 (its perturbation comes with ddpg)")
+        not_ported("deepq", "param_noise", "slice 5 (its perturbation comes with ddpg)")
     if checkpoint_path is not None or load_path is not None:
-        _not_ported("checkpoint_path and load_path", "slice 2 (item 8, checkpoints)")
+        not_ported("deepq", "checkpoint_path and load_path", "slice 2 (item 8, checkpoints)")
     if mesh is not None:
-        _not_ported("mesh", "slice 3 (data parallelism)")
+        not_ported("deepq", "mesh", "slice 3 (data parallelism)")
     device = resolve_device(device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)

@@ -1,7 +1,9 @@
 """PPO with the clipped surrogate (counterpart of baselines_tpu/algos/ppo/ppo.py).
 
-Loss as ppo2/model.py:46-116: clipped value loss, clipped ratio surrogate, entropy
-bonus, approxkl and clipfrac, with advantages normalized per minibatch. Schedule as
+Loss as ppo2/model.py:46-116: clipped value loss (or ppo1's plain value MSE with
+``clip_value=False``), clipped ratio surrogate, entropy bonus, approxkl and clipfrac,
+with advantages normalized per minibatch (or once over the whole batch with
+``adv_norm="batch"``, ppo1's standardization). Schedule as
 ppo2/ppo2.py:21-218: noptepochs x nminibatches of shuffled minibatch steps, the
 learning rate and clip range annealed by the remaining fraction of training.
 
@@ -19,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, run_rollout
+from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, not_ported, run_rollout
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import explained_variance
@@ -48,8 +50,9 @@ def _flat01(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
 
-def make_ppo_loss(policy, ent_coef: float, vf_coef: float):
-    """ppo.py:63-124 for a feedforward policy with the clipped value loss."""
+def make_ppo_loss(policy, ent_coef: float, vf_coef: float, clip_value: bool = True):
+    """ppo.py:63-124 for a feedforward policy: ppo2's clipped value loss, or the plain
+    value MSE of ppo1 with ``clip_value=False``."""
 
     def loss_fn(batch, advs, cliprange: float):
         obs, actions, returns, old_values, old_neglogps, _ = batch
@@ -59,9 +62,12 @@ def make_ppo_loss(policy, ent_coef: float, vf_coef: float):
         entropy = torch.mean(pd.entropy())
 
         vf_losses1 = torch.square(vpred - returns)
-        vpredclipped = old_values + torch.clamp(vpred - old_values, -cliprange, cliprange)
-        vf_losses2 = torch.square(vpredclipped - returns)
-        vf_loss = 0.5 * torch.mean(torch.maximum(vf_losses1, vf_losses2))
+        if clip_value:
+            vpredclipped = old_values + torch.clamp(vpred - old_values, -cliprange, cliprange)
+            vf_losses2 = torch.square(vpredclipped - returns)
+            vf_loss = 0.5 * torch.mean(torch.maximum(vf_losses1, vf_losses2))
+        else:
+            vf_loss = 0.5 * torch.mean(vf_losses1)
 
         # 1 -/+ cliprange in f32, as the JAX package computes them
         lo = float(np.float32(1.0) - np.float32(cliprange))
@@ -92,13 +98,17 @@ def _normalize_advs(returns: torch.Tensor, values: torch.Tensor) -> torch.Tensor
 
 
 def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepochs, gamma,
-                   lam, ent_coef, vf_coef, lr_fn, cliprange_fn, nupdates):
+                   lam, ent_coef, vf_coef, lr_fn, cliprange_fn, nupdates,
+                   adv_norm: str = "minibatch", clip_value: bool = True):
     """One PPO update (ppo.py:208-233, :308-330, :374-396, feedforward, one device):
     ``update_fn(state, draws) -> (state, metrics)``. The rollout takes its draws first,
-    then each epoch one permutation."""
+    then each epoch one permutation. ``adv_norm="batch"`` standardizes the advantages
+    once over the whole batch and shuffles them with the other fields."""
+    if adv_norm not in ("minibatch", "batch"):
+        raise ValueError(f"adv_norm must be 'minibatch' or 'batch', got {adv_norm!r}")
     nbatch = venv.num_envs * nsteps
     nbatch_train = nbatch // nminibatches
-    loss_fn = make_ppo_loss(policy, ent_coef, vf_coef)
+    loss_fn = make_ppo_loss(policy, ent_coef, vf_coef, clip_value)
     params = opt.params
 
     def update_fn(state: PPOTrainState, draws):
@@ -112,6 +122,8 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
         advs, returns = gae(traj.rewards, traj.values, traj.dones, last_value, gamma, lam)
         batch = [_flat01(x) for x in (traj.obs, traj.actions, returns, traj.values,
                                       traj.neglogps, traj.rnn_masks)]
+        if adv_norm == "batch":
+            batch.append(_flat01(_normalize_advs(returns, traj.values)))
 
         metrics = []
         for _ in range(noptepochs):
@@ -119,7 +131,7 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
             shuffled = [take_rows(x, perm) for x in batch]
             for i in range(nminibatches):
                 mb = [x[i * nbatch_train:(i + 1) * nbatch_train] for x in shuffled]
-                mb_advs = _normalize_advs(mb[2], mb[3])
+                mb_advs = mb.pop() if adv_norm == "batch" else _normalize_advs(mb[2], mb[3])
                 loss, mb_metrics = loss_fn(mb, mb_advs, cliprange)
                 grads = torch.autograd.grad(loss, params)
                 opt.step(grads, lr)
@@ -156,15 +168,37 @@ def learn(
     nminibatches: int = 4,
     noptepochs: int = 4,
     cliprange=0.2,
+    save_interval: int = 0,
+    load_path: str | None = None,
+    value_network: str | None = None,
+    microbatch_size: int | None = None,
+    pipeline: bool | None = None,
+    mesh=None,
+    adv_norm: str = "minibatch",
+    clip_value: bool = True,
     adam_epsilon: float = 1e-5,
     device=None,
     **network_kwargs,
 ) -> Model:
     """Train ppo2 (ppo2/ppo2.py:21-218), logging the keys of ppo.py:589-599.
 
-    ``device`` is the card unless the caller passes ``"cpu"``; ``env_kwargs`` go to
-    ``build_env`` (for example ``s2d=4``) and the remaining keywords to the network
-    (for example ``dtype=torch.bfloat16``)."""
+    Takes every keyword of the JAX package's ``learn``; those whose part is not ported
+    yet raise ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that
+    brings it. The default network stays ``"cnn_s2d"`` (the JAX package's is ``"mlp"``)
+    until ``mlp`` is ported. ``pipeline=None`` picks the on-device rollout, as the JAX
+    package does for a device env. ``device`` is the card unless the caller passes
+    ``"cpu"``; ``env_kwargs`` go to ``build_env`` (for example ``s2d=4``) and the
+    remaining keywords to the network (for example ``dtype=torch.bfloat16``)."""
+    if save_interval or load_path is not None:
+        not_ported("ppo2", "save_interval and load_path", "item 2 (checkpoints)")
+    if value_network not in (None, "shared"):
+        not_ported("ppo2", f"value_network={value_network!r}", "item 4")
+    if microbatch_size is not None:
+        not_ported("ppo2", "microbatch_size", "item 4 (gradient microbatching)")
+    if pipeline:
+        not_ported("ppo2", "pipeline", "item 8 (the host pipeline)")
+    if mesh is not None:
+        not_ported("ppo2", "mesh", "item 5 (data parallelism)")
     device = resolve_device(device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
@@ -185,7 +219,7 @@ def learn(
         policy, venv, opt, nsteps=nsteps, nminibatches=nminibatches, noptepochs=noptepochs,
         gamma=gamma, lam=lam, ent_coef=ent_coef, vf_coef=vf_coef,
         lr_fn=resolve_fraction_schedule(lr), cliprange_fn=resolve_fraction_schedule(cliprange),
-        nupdates=nupdates,
+        nupdates=nupdates, adv_norm=adv_norm, clip_value=clip_value,
     )
 
     tfirststart = time.time()

@@ -95,8 +95,10 @@ def library() -> ctypes.CDLL:
     if _library is None:
         lib = ctypes.CDLL(build()["path"])
         vp = ctypes.c_void_p
-        lib.btt_fused_cnn_forward.argtypes = [vp] * 10 + [ctypes.c_int, vp]
-        lib.btt_fused_cnn_forward.restype = ctypes.c_int
+        lib.btt_fused_cnn_conv.argtypes = [vp] * 8 + [ctypes.c_int, vp]
+        lib.btt_fused_cnn_dense.argtypes = [vp] * 4 + [ctypes.c_int, vp]
+        for fn in (lib.btt_fused_cnn_conv, lib.btt_fused_cnn_dense):
+            fn.restype = ctypes.c_int
         lib.btt_gather_rows.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
                                         ctypes.c_longlong, vp]
         lib.btt_gather_rows.restype = ctypes.c_int

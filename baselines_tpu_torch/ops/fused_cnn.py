@@ -1,4 +1,4 @@
-"""The fused forward of the space-to-depth Nature CNN, as one CUDA kernel.
+"""The fused forward of the space-to-depth Nature CNN, as hand-written CUDA kernels.
 
 Replaces the Pallas kernel ``_fwd_kernel`` of ``baselines_tpu/ops/fused_cnn.py``
 (reached there through ``fused_cnn_forward`` -> ``_fused_fwd``). It computes the whole
@@ -6,13 +6,16 @@ Replaces the Pallas kernel ``_fwd_kernel`` of ``baselines_tpu/ops/fused_cnn.py``
 the 3136->512 dense layer, each with f32 accumulation, bias and relu in f32 and bf16
 between layers; only the f32 latent is written.
 
-What bounds it on an H100: 18.69 MFLOP a sample against 30 KB of input and output, so
-tensor-core operations bound it at every batch the port uses (4.8 us of bf16 work at the
-rollout's batch of 256, against 3.3 us to move its bytes). The kernel
-(``csrc/fused_cnn.cu``) keeps every activation in shared memory and runs each layer as an
-implicit GEMM on bf16 ``mma.sync``; see the source for the tiling. The Pallas kernel's
-(H, W, B, C) layout was forced by the TPU compiler and is not carried over: the kernel
-reads the u8 NHWC frames as they are.
+What bounds it on an H100: 18.69 MFLOP a sample against 30 KB of input and output and
+3.37 MB of weights, so the weights' bytes bound it at deepq's batch of 64 (1.6 us) and
+tensor-core operations at the rollout's batch of 256 (4.8 us) and above. The kernel
+(``csrc/fused_cnn.cu``) is two launches under this one call (``conv_stage`` and
+``dense_stage``, which ``chip_smoke.py`` also times apart): a conv stage, one sample a
+block with each layer's weights staged in shared memory and every fragment loaded by
+``ldmatrix``, writes the bf16 conv3 output to a scratch tensor; a dense stage, a tiled
+GEMM whose depth is split over a thread-block cluster at small batch, reads it. See the
+source for the tiling. The Pallas kernel's (H, W, B, C) layout was forced by the TPU
+compiler and is not carried over: the kernel reads the u8 NHWC frames as they are.
 
 ``pack_params`` lays the module's weights out for the kernel once; the rollout packs
 them once for each rollout and reuses them at every step.
@@ -29,6 +32,7 @@ H0, W0, C0 = 21, 21, 64
 C1, C2, C3 = 32, 64, 64
 FC_IN, FC_OUT = 7 * 7 * 64, 512
 INV255 = 1.0 / 255.0
+MAX_BATCH = 65535 * 64  # the dense stage's grid takes 65535 tiles of 64 samples
 
 # (shape, dtype) of each packed weight, in the kernel's argument order
 PACKED_LAYOUT = (
@@ -103,17 +107,36 @@ def fused_cnn_forward(x: torch.Tensor, packed: tuple) -> torch.Tensor:
         return reference_forward(x, packed)
     if x.device.type != "cuda":
         raise ValueError(f"fused_cnn_forward runs on cuda or cpu, not {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError("fused_cnn_forward needs a 16-byte aligned input")
-    lib = cuda_lib.library()
+    if x.shape[0] > MAX_BATCH:
+        raise ValueError(f"fused_cnn_forward takes at most {MAX_BATCH} samples a call")
+    if any(t.data_ptr() % 16 for t in (x, *packed)):
+        raise ValueError("fused_cnn_forward needs 16-byte aligned input and weights")
+    a3 = torch.empty((x.shape[0], FC_IN), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((x.shape[0], FC_OUT), dtype=torch.float32, device=x.device)
-    err = lib.btt_fused_cnn_forward(
-        x.data_ptr(), *(p.data_ptr() for p in packed), out.data_ptr(), x.shape[0],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    cuda_lib.check(err, "fused_cnn_forward")
+    conv_stage(x, packed, a3)
+    dense_stage(a3, packed, out)
     fused_cnn_forward.launches += 1
     return out
 
 
 fused_cnn_forward.launches = 0
+
+
+def conv_stage(x: torch.Tensor, packed: tuple, a3: torch.Tensor) -> None:
+    """The kernel's first launch, x -> bf16 (B, 3136) conv3 output in a3, on arguments
+    ``fused_cnn_forward`` has checked. Not counted: a call of the op counts once."""
+    w1, b1, w2, b2, w3, b3 = (p.data_ptr() for p in packed[:6])
+    err = cuda_lib.library().btt_fused_cnn_conv(
+        x.data_ptr(), w1, b1, w2, b2, w3, b3, a3.data_ptr(), x.shape[0],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_lib.check(err, "fused_cnn_forward conv stage")
+
+
+def dense_stage(a3: torch.Tensor, packed: tuple, out: torch.Tensor) -> None:
+    """The kernel's second launch, a3 -> f32 (B, 512) latent in out. Not counted."""
+    err = cuda_lib.library().btt_fused_cnn_dense(
+        a3.data_ptr(), packed[6].data_ptr(), packed[7].data_ptr(), out.data_ptr(), a3.shape[0],
+        torch.cuda.current_stream(a3.device).cuda_stream,
+    )
+    cuda_lib.check(err, "fused_cnn_forward dense stage")

@@ -6,9 +6,10 @@ returns ``x[idx]`` along the first axis, bit for bit, for rows of any shape and 
 
 What bounds it on an H100: it is a pure copy, so device-memory bytes, each selected row
 read once and written once; for the PPO obs (32768 rows of 28,224 bytes) that is
-1.85 GB, or 552 us at 3.35 TB/s. The kernel (``csrc/gather.cu``) treats a row as flat
-bytes and moves it in the widest unit its width and addresses allow, 16-byte vectors
-for the obs, with neighbouring threads on neighbouring units and several rows a block.
+1.85 GB, or 552 us at 3.35 TB/s. The kernel (``csrc/gather.cu``) cuts each row into
+chunks over a 2-D grid of rows x chunks, so a short gather (deepq's 256 rows) still
+fills every SM, and moves them in the widest unit their width and addresses allow (16
+bytes for the obs), each thread with independent loads in flight before its stores.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ Phases, each printing its seconds:
   1. device: the card's name and count, and nvidia-smi's name and power limit;
   2. build: nvcc builds the port's kernel library (seconds and -Xptxas -v lines);
   3. the fused CNN forward kernel against its plain version, at batch 64 (deepq's act
-     step), 256 (ppo2's rollout step) and 8192 (ppo2's minibatch);
+     step), 256 (ppo2's rollout step) and 8192 (ppo2's minibatch), timed whole and by
+     stage (conv, dense), and at batches that end in a partial tile;
   4. the row-gather kernel against x[idx], on the PPO obs and one f32 field, and on the
-     deepq replay sample (256 rows of the 10000-slot ring);
+     deepq replay sample (256 rows of the 10000-slot ring), with out-of-range indices,
+     timed against index_select in three rounds of turns;
   5. the stratified sampler's two kernels (block sums, search) against their plain
      version, at a million slots with 32 and 256 targets and at the deepq path's 10240
      padded slots with 256 targets: bit for bit on integer priorities, within 2 slots
@@ -91,6 +93,29 @@ def graph_ms(fn, iters: int, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def turns_ms(fns: dict, iters: int, reps: int = 10, rounds: int = 1) -> tuple[dict, dict]:
+    """graph_ms of each fn, measured in turns after one discarded measurement of the
+    first: in order, then in reverse order, rounds times. Returns the mean of each fn's
+    readings, so that neither the first nor the last place favours one, and the
+    readings themselves, in the order taken."""
+    graph_ms(next(iter(fns.values())), iters, reps)
+    readings = {k: [] for k in fns}
+    for _ in range(rounds):
+        for order in (list(fns), list(reversed(list(fns)))):
+            for k in order:
+                readings[k].append(graph_ms(fns[k], iters, reps))
+    return {k: sum(v) / len(v) for k, v in readings.items()}, readings
+
+
+def lead(readings: dict, a: str, b: str) -> str:
+    """How a's readings stand against b's, turn by turn: the readings and the number of
+    turns in which a took less time."""
+    wins = sum(x < y for x, y in zip(readings[a], readings[b]))
+    return (f"{a} {', '.join(f'{x:.4f}' for x in readings[a])}; {b} "
+            f"{', '.join(f'{y:.4f}' for y in readings[b])}; {a} faster in {wins} of "
+            f"{len(readings[a])} turns")
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -123,7 +148,8 @@ def main() -> int:
         from baselines_tpu_torch.ops import cuda_lib
         from baselines_tpu_torch.ops import stratified_sample as ss
         from baselines_tpu_torch.ops.fused_cnn import (
-            FC_IN, FC_OUT, fused_cnn_forward, pack_params, reference_forward,
+            FC_IN, FC_OUT, conv_stage, dense_stage, fused_cnn_forward, pack_params,
+            reference_forward,
         )
         from baselines_tpu_torch.ops.gather import take_rows
 
@@ -173,7 +199,10 @@ def main() -> int:
         return {name: fn.launches for name, fn in launchers.items()}
 
     with Phase("fused_cnn vs plain"):
-        for batch in (64, 256, 8192):  # deepq's act step, ppo2's rollout and minibatch
+        # deepq's act step (64), ppo2's rollout (256) and minibatch (8192), and batches
+        # that end in a partial 64-sample tile; the dense stage splits its depth 8 ways
+        # up to 512 samples, 4 ways at 600, 2 ways at 1029 and not at 8192
+        for batch in (64, 65, 100, 256, 257, 600, 1029, 8192):
             gen = torch.Generator(device=dev).manual_seed(batch)
             x = torch.randint(0, 256, (batch, 21, 21, 64), dtype=torch.uint8, device=dev,
                               generator=gen)
@@ -190,18 +219,46 @@ def main() -> int:
             active = float((want > 0).float().mean())
             require(active > 0.1, f"fused_cnn: degenerate test, {active:.3f} of latents active")
             require(rel_err < K1_REL_TOL, f"fused_cnn at B={batch}: rel err {rel_err:.3g}")
+            require(torch.equal(fused_cnn_forward(x, packed), got),
+                    f"fused_cnn at B={batch}: a second call gave other bits")
+            if batch not in (64, 256, 8192):
+                print(f"fused_cnn B={batch}: max abs err {abs_err:.3g}, rel err {rel_err:.3g} "
+                      f"(tol {K1_REL_TOL})", flush=True)
+                del x, net, packed, got, want
+                continue
             iters = 50 if batch <= 256 else 10
-            ms = time_ms(lambda: fused_cnn_forward(x, packed), iters)
-            plain_ms = time_ms(lambda: reference_forward(x, packed), iters)
+            # device times from CUDA graphs, in turns: at small batch a call takes less
+            # device time than the host spends issuing it; the eager times are the calls
+            # as the path makes them
+            # the op's two launches apart, on buffers made once
+            a3 = torch.empty((batch, FC_IN), dtype=torch.bfloat16, device=dev)
+            latent = torch.empty((batch, FC_OUT), dtype=torch.float32, device=dev)
             with torch.no_grad():
-                library_ms = time_ms(lambda: net(x), iters)
+                t, _ = turns_ms({"kernel": lambda: fused_cnn_forward(x, packed),
+                              "conv": lambda: conv_stage(x, packed, a3),
+                              "dense": lambda: dense_stage(a3, packed, latent),
+                              "plain": lambda: reference_forward(x, packed),
+                              "library": lambda: net(x)}, iters)
+                library_eager_ms = time_ms(lambda: net(x), iters)
+            ms, conv_ms, dense_ms, plain_ms, library_ms = (
+                t[k] for k in ("kernel", "conv", "dense", "plain", "library"))
+            eager_ms = time_ms(lambda: fused_cnn_forward(x, packed), iters)
             flops = batch * 2 * (400 * 32 * 256 + 81 * 64 * 512 + 49 * 64 * 576 + FC_IN * FC_OUT)
             nbytes = x.numel() + sum(p.numel() * p.element_size() for p in packed) + got.numel() * 4
             bms, by = bound_ms(flops, nbytes)
+            conv_flops = batch * 2 * (400 * 32 * 256 + 81 * 64 * 512 + 49 * 64 * 576)
+            conv_bytes = x.numel() + sum(p.numel() * p.element_size() for p in packed[:6]) \
+                + batch * FC_IN * 2
+            dense_bytes = batch * FC_IN * 2 + packed[6].numel() * 2 + FC_OUT * 4 + got.numel() * 4
+            conv_bms, conv_by = bound_ms(conv_flops, conv_bytes)
+            dense_bms, dense_by = bound_ms(batch * 2 * FC_IN * FC_OUT, dense_bytes)
             print(f"fused_cnn B={batch}: max abs err {abs_err:.3g}, rel err {rel_err:.3g} "
-                  f"(tol {K1_REL_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"cuDNN bf16 module {library_ms:.4f} ms, bound {bms:.4f} ms ({by}) "
-                  f"[{card}]", flush=True)
+                  f"(tol {K1_REL_TOL}); device times: kernel {ms:.4f} ms (conv stage "
+                  f"{conv_ms:.4f}, bound {conv_bms:.4f} {conv_by}; dense stage {dense_ms:.4f}, "
+                  f"bound {dense_bms:.4f} {dense_by}), plain {plain_ms:.4f} ms, cuDNN bf16 "
+                  f"module {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); eager calls: kernel "
+                  f"{eager_ms:.4f} ms, cuDNN bf16 module {library_eager_ms:.4f} ms [{card}]",
+                  flush=True)
             if batch == 256:  # ppo2's rollout step
                 kernels["fused_cnn"] = dict(
                     name="fused_cnn_forward", route="cuda",
@@ -210,7 +267,7 @@ def main() -> int:
                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=library_ms,
                 )
-            del x, net, packed, got, want
+            del x, net, packed, got, want, a3, latent
 
     with Phase("take_rows vs x[idx]"):
         n = 32768
@@ -228,15 +285,28 @@ def main() -> int:
             require(torch.equal(take_rows(ragged, idx[: ragged.shape[0]] % ragged.shape[0]),
                                 ragged[idx[: ragged.shape[0]] % ragged.shape[0]]),
                     f"take_rows: rows of shape {tuple(ragged.shape[1:])} differ from x[idx]")
+        # an index outside [0, N) gives a row of zeros
+        rows = take_rows(obs, torch.tensor([3, -1, n, 5], device=dev))
+        require(torch.equal(rows[0], obs[3]) and torch.equal(rows[3], obs[5])
+                and not rows[1:3].any(), "take_rows: out-of-range rows not zero")
         abs_err = float((got.float() - obs[idx].float()).abs().max())
-        ms = time_ms(lambda: take_rows(obs, idx), 20)
-        plain_ms = time_ms(lambda: obs.index_select(0, idx), 20)
-        library_ms = time_ms(lambda: torch.index_select(obs, 0, idx), 20)
+        # device times from CUDA graphs in three rounds of turns, beside the eager calls'
+        # CUDA-event times: the kernel and index_select differ by a few percent here
+        t, readings = turns_ms({"kernel": lambda: take_rows(obs, idx),
+                      "plain": lambda: obs[idx],
+                      "index_select": lambda: torch.index_select(obs, 0, idx)}, 5, reps=4,
+                               rounds=3)
+        ms, plain_ms, library_ms = (t[k] for k in ("kernel", "plain", "index_select"))
+        eager_ms = time_ms(lambda: take_rows(obs, idx), 20)
+        eager_library_ms = time_ms(lambda: torch.index_select(obs, 0, idx), 20)
         nbytes = 2 * obs.numel() + idx.numel() * 8
         bms, by = bound_ms(0, nbytes)
-        field_ms = time_ms(lambda: take_rows(field, idx), 50)
-        print(f"take_rows obs (32768, 21, 21, 64) u8: bit-exact; kernel {ms:.4f} ms, plain "
+        field_ms = graph_ms(lambda: take_rows(field, idx), 50)
+        print(f"take_rows obs (32768, 21, 21, 64) u8: bit-exact; device times: "
+              f"kernel {ms:.4f} ms ({bms / ms:.1%} of the bound), plain x[idx] "
               f"{plain_ms:.4f} ms, index_select {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+              f"in turns: {lead(readings, 'kernel', 'index_select')}; "
+              f"eager calls: kernel {eager_ms:.4f} ms, index_select {eager_library_ms:.4f} ms; "
               f"f32 (32768,) field: bit-exact, kernel {field_ms:.4f} ms [{card}]", flush=True)
         kernels["take_rows"] = dict(
             name="take_rows", route="cuda", source="baselines_tpu_torch/csrc/gather.cu",
@@ -250,13 +320,15 @@ def main() -> int:
         require(torch.equal(take_rows(ring, ridx), ring[ridx])
                 and torch.equal(take_rows(ring_field, ridx), ring_field[ridx]),
                 "take_rows: the replay sample differs from x[idx]")
-        ring_ms = graph_ms(lambda: take_rows(ring, ridx), 50)
-        ring_plain_ms = graph_ms(lambda: ring.index_select(0, ridx), 50)
+        t, ring_readings = turns_ms({"kernel": lambda: take_rows(ring, ridx),
+                      "index_select": lambda: ring.index_select(0, ridx)}, 50, rounds=3)
+        ring_ms, ring_plain_ms = t["kernel"], t["index_select"]
         ring_field_ms = graph_ms(lambda: take_rows(ring_field, ridx), 50)
         ring_bms, _ = bound_ms(0, 2 * 256 * ring[0].numel() + 256 * 8)
         print(f"take_rows replay sample (10000, 21, 21, 64) u8 by 256: bit-exact; device "
-              f"times: kernel {ring_ms:.4f} ms, index_select {ring_plain_ms:.4f} ms, bound "
-              f"{ring_bms:.4f} ms (bytes); f32 field {ring_field_ms:.4f} ms [{card}]",
+              f"times: kernel {ring_ms:.4f} ms, index_select {ring_plain_ms:.4f} ms, "
+              f"in turns: {lead(ring_readings, 'kernel', 'index_select')}, "
+              f"bound {ring_bms:.4f} ms (bytes); f32 field {ring_field_ms:.4f} ms [{card}]",
               flush=True)
         del obs, idx, field, got, ring, ring_field
 

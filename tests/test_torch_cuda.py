@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card, at shapes that
-reach every path of each kernel (batch tails, the two sample-per-block counts, every
-copy width). Without a card these tests skip. On a machine with the card, where JAX is
+reach every path of each kernel (batch tails, every split of the dense stage's depth,
+every copy width of the gather). Without a card these tests skip. On a machine with the card, where JAX is
 not installed, run them without the suite's conftest.py, which sets JAX up:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -26,10 +26,12 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("batch", [1, 3, 256, 1029])
+@pytest.mark.parametrize("batch", [1, 3, 63, 64, 65, 256, 600, 1029, 8192])
 def test_fused_cnn_kernel_matches_plain(dev, batch):
     """Relative error < 2e-2 (bf16 activations, sums in another order) at batches that
-    end in a partial block, for both sample-per-block counts (below and above 1024)."""
+    end in a partial 64-sample tile and that split the dense stage's depth 8 (up to 512
+    samples), 4 (600), 2 (1029) ways or not at all (8192); the same bits from a second
+    call (the split sums in a fixed order)."""
     gen = torch.Generator(device=dev).manual_seed(batch)
     x = torch.randint(0, 256, (batch, 21, 21, 64), dtype=torch.uint8, device=dev, generator=gen)
     net = NatureCNNS2D(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0)).to(dev)
@@ -42,23 +44,28 @@ def test_fused_cnn_kernel_matches_plain(dev, batch):
     assert got.shape == (batch, 512) and bool(torch.isfinite(got).all())
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < 2e-2, rel
+    assert torch.equal(fused_cnn_forward(x, packed), got)
     with torch.no_grad():
         module = net(x)
     assert float((got - module).abs().max() / module.abs().max()) < 2e-2
 
 
+@pytest.mark.parametrize("m", [1, 7, 256, 32768])
 @pytest.mark.parametrize("shape,dtype", [
-    ((300, 21, 21, 64), torch.uint8),  # 16-byte units
+    ((300, 21, 21, 64), torch.uint8),  # wide rows of 16-byte units
+    ((300, 21, 21, 63), torch.uint8),  # wide rows that are not a multiple of 16 bytes
     ((300,), torch.float32),  # 4-byte units
     ((300, 2), torch.float32),  # 8-byte units
+    ((300,), torch.int64),  # 8-byte units
     ((300, 3), torch.int16),  # 2-byte units
     ((300, 7), torch.uint8),  # single bytes
-])
-def test_take_rows_kernel_matches_x_idx(dev, shape, dtype):
-    """Bit for bit, with duplicate indices."""
-    gen = torch.Generator(device=dev).manual_seed(0)
+    ((300,), torch.bool),  # single bytes
+], ids=["u8_obs", "u8_ragged", "f32", "f32x2", "i64", "i16x3", "u8x7", "bool"])
+def test_take_rows_kernel_matches_x_idx(dev, shape, dtype, m):
+    """Bit for bit, with duplicate indices, from 1 row to the epoch shuffle's 32768."""
+    gen = torch.Generator(device=dev).manual_seed(m)
     x = torch.randint(-100, 100, shape, device=dev, generator=gen).to(dtype)
-    idx = torch.randint(0, shape[0], (517,), device=dev, generator=gen)
+    idx = torch.randint(0, shape[0], (m,), device=dev, generator=gen)
     got = take_rows(x, idx)
     torch.cuda.synchronize()
     assert torch.equal(got, x[idx])
@@ -72,10 +79,13 @@ def test_take_rows_kernel_on_unaligned_rows(dev):
     assert torch.equal(take_rows(x, idx), x[idx])
 
 
-def test_take_rows_kernel_zeroes_rows_of_out_of_range_indices(dev):
-    x = torch.ones((4, 5), device=dev)
-    got = take_rows(x, torch.tensor([0, 4, -1, 3], device=dev))
-    assert torch.equal(got.sum(dim=1).cpu(), torch.tensor([5.0, 0.0, 0.0, 5.0]))
+@pytest.mark.parametrize("shape", [(4, 5), (4, 21, 21, 64)])
+def test_take_rows_kernel_zeroes_rows_of_out_of_range_indices(dev, shape):
+    x = torch.ones(shape, device=dev)
+    idx = torch.tensor([0, 4, -1, 3], device=dev)
+    got = take_rows(x, idx)
+    row = float(x[0].numel())
+    assert torch.equal(got.reshape(4, -1).sum(dim=1).cpu(), torch.tensor([row, 0.0, 0.0, row]))
 
 
 def _integer_priorities(gen, n, dev, block_total=4096):

@@ -13,6 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from baselines_tpu.algos.common import adam_optimizer
+from baselines_tpu.algos.common import build_env as jax_build_env
+from baselines_tpu.algos.ppo.ppo import PPOTrainState as JaxTrainState
+from baselines_tpu.algos.ppo.ppo import make_update_fn as jax_make_update_fn
+from baselines_tpu.core.schedules import resolve_fraction_schedule as jax_schedule
+from baselines_tpu.nn.policy import build_policy as jax_build_policy
+from baselines_tpu_torch import convert
+from baselines_tpu_torch.algos.common import ClipAdam, build_env
+from baselines_tpu_torch.algos.ppo.ppo import PPOTrainState, make_update_fn
+from baselines_tpu_torch.core.schedules import resolve_fraction_schedule
+from baselines_tpu_torch.nn.policy import build_policy
+
 # the suite runs in several worker processes at once; one torch thread each keeps them
 # from oversubscribing the cores
 torch.set_num_threads(1)
@@ -98,3 +110,82 @@ def policy_params(seed: int, n_actions: int = 6) -> dict:
 def rel_err(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
+
+
+NENVS, NSTEPS, NMB, NEPOCHS = 8, 16, 2, 2
+UPDATE_HPARAMS = dict(nsteps=NSTEPS, nminibatches=NMB, noptepochs=NEPOCHS, gamma=0.99,
+                      lam=0.95, ent_coef=0.01, vf_coef=0.5, nupdates=1)
+
+
+def one_ppo_update(**options) -> dict:
+    """One full ppo2 update of the port and of the JAX package on the CPU, at 8 envs x
+    16 steps of AtariSim-v0 packed by VecS2D, cnn_s2d in f32, 2 epochs of 2 minibatches,
+    with ``options`` (``adv_norm``, ``clip_value``) passed to both ``make_update_fn``.
+
+    Both start from the same weights (carried across by convert.py) and the same env
+    state. The port is handed the very draws the JAX update makes, rebuilt from the same
+    key splits (algos/ppo/ppo.py:374-375, algos/common.py:228-230): the Gumbel uniforms
+    and env reset draws of every rollout step, then the epoch permutations. Returns the
+    new states and metrics of both sides, the port's policy and its starting weights."""
+    venv = jax_build_env("AtariSim-v0", NENVS, s2d=4)
+    jpol = jax_build_policy(venv.observation_space, venv.action_space, "cnn_s2d")
+    tx = adam_optimizer(0.5, eps=1e-5)
+    # learn()'s make_state (algos/ppo/ppo.py:508-521), with the params made by numpy
+    key, kreset, _ = jax.random.split(jax.random.PRNGKey(0), 3)
+    obs, env_state = venv.reset(kreset)
+    params = policy_params(0, venv.action_space.n)
+    state = JaxTrainState(params=params, opt_state=tx.init(params), key=key,
+                          env_state=env_state, obs=obs, rnn_state=None,
+                          last_done=jnp.zeros((NENVS,), bool), update_idx=jnp.zeros((), jnp.int32))
+    update = jax.jit(jax_make_update_fn(jpol, venv, tx, lr_fn=jax_schedule(3e-4),
+                                        cliprange_fn=jax_schedule(0.2), **UPDATE_HPARAMS,
+                                        **options))
+    jnew, jmetrics = update(state)
+
+    base = venv.venv.venv.env  # VecS2D -> VecMonitor -> VecJaxEnv -> AtariSim
+    draws = ReplayDraws()
+    push_reset(draws, base, kreset, NENVS)
+    k = key
+    for _ in range(NSTEPS):
+        k = push_rollout_step(draws, base, k, NENVS, venv.action_space.n)
+    push_epochs(draws, k, NEPOCHS, NENVS * NSTEPS)
+
+    tvenv = build_env("AtariSim-v0", NENVS, device="cpu", s2d=4)
+    tpol = build_policy(tvenv.observation_space, tvenv.action_space, "cnn_s2d", device="cpu")
+    start = convert.policy_state_dict(params)
+    tpol.module.load_state_dict(start)
+    opt = ClipAdam(tpol.module.parameters(), 0.5, eps=1e-5)
+    tobs, tenv_state = tvenv.reset(draws)
+    np.testing.assert_array_equal(tobs.numpy(), np.asarray(obs))
+    tstate = PPOTrainState(env_state=tenv_state, obs=tobs,
+                           last_done=torch.zeros((NENVS,), dtype=torch.bool))
+    update_fn = make_update_fn(tpol, tvenv, opt, lr_fn=resolve_fraction_schedule(3e-4),
+                               cliprange_fn=resolve_fraction_schedule(0.2), **UPDATE_HPARAMS,
+                               **options)
+    tnew, tmetrics = update_fn(tstate, draws)
+    assert not draws.queue, "the port took fewer draws than the JAX update made"
+    return dict(jnew=jnew, jmetrics=jmetrics, tnew=tnew, tmetrics=tmetrics, tpol=tpol,
+                start=start)
+
+
+def assert_update_metrics_match(jm, tm) -> None:
+    """Every metric to 1e-4 relative or 1e-6 absolute: f32 convolutions and reductions
+    sum in another order, and the second and later minibatch steps see params that
+    already carry those differences."""
+    assert set(tm) == set(jm)
+    for k in jm:
+        got, want = float(tm[k]), float(jm[k])
+        assert abs(got - want) <= 1e-6 + 1e-4 * abs(want), (k, got, want)
+    assert float(jm["approxkl"]) > 0
+
+
+def assert_update_params_match(jnew_params, tpol, start) -> None:
+    """Each param tensor's change over the update to 2e-4 of that change: Adam divides
+    each gradient by its running scale, so a relative difference in a small gradient
+    comes through undamped (3e-5 at most, measured on the default update's inputs)."""
+    want = convert.policy_state_dict(jax.tree_util.tree_map(np.asarray, jnew_params))
+    for name, p in tpol.module.state_dict().items():
+        base = start[name].double()
+        delta_want = want[name].double() - base
+        assert float(delta_want.abs().max()) > 0, name
+        assert rel_err(p.double() - base, delta_want) < 2e-4, name
