@@ -18,6 +18,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -85,7 +87,8 @@ def build() -> dict:
         if link.returncode != 0:
             raise RuntimeError(f"linking {path.name} failed:\n{link.stdout}")
         os.replace(staged, path)
-    ptxas = [line for log in logs for line in log.splitlines() if "ptxas" in line]
+    ptxas = [line.strip() for log in logs for line in log.splitlines()
+             if "ptxas" in line or "spill" in line]
     return {"path": str(path), "seconds": time.perf_counter() - start, "ptxas": ptxas}
 
 
@@ -102,17 +105,20 @@ def library() -> ctypes.CDLL:
         lib.btt_gather_rows.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
                                         ctypes.c_longlong, vp]
         lib.btt_gather_rows.restype = ctypes.c_int
-        lib.btt_block_sums.argtypes = [vp, ctypes.c_longlong, vp, vp]
-        lib.btt_block_sums.restype = ctypes.c_int
-        lib.btt_stratified_search.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp,
+        lib.btt_stratified_sample.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int, vp, vp,
                                               vp]
-        lib.btt_stratified_search.restype = ctypes.c_int
-        lib.btt_stratified_search_max_blocks.argtypes = []
-        lib.btt_stratified_search_max_blocks.restype = ctypes.c_longlong
+        lib.btt_stratified_sample.restype = ctypes.c_int
         lib.btt_error_string.argtypes = [ctypes.c_int]
         lib.btt_error_string.restype = ctypes.c_char_p
         _library = lib
     return _library
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of the current CUDA stream of ``device``, for a C entry's stream
+    argument. It reads the handle without building a ``torch.cuda.Stream`` object,
+    which takes several microseconds of host time a call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, what: str) -> None:

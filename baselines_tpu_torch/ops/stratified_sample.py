@@ -1,11 +1,12 @@
-"""Two-level stratified sampling from a priority vector, as two CUDA kernels.
+"""Two-level stratified sampling from a priority vector, as one CUDA kernel launch.
 
-Replaces the Pallas kernels of ``baselines_tpu/data/pallas_sampler.py`` (reached there
-through ``pallas_stratified_sample``): ``block_sums`` replaces ``_block_sums_kernel``
-and ``stratified_search`` replaces ``_sample_kernel``. ``stratified_sample(priorities,
-uniforms, batch_size)`` composes them: with ``total`` the sum of the block sums, target
-``i`` is ``(i + uniforms[i]) / batch_size * total`` in f32, and its index is the slot
-where the inclusive prefix of the priorities first exceeds it (searchsorted ``right``).
+Replaces both Pallas kernels of ``baselines_tpu/data/pallas_sampler.py`` (reached there
+through ``pallas_stratified_sample``), ``_block_sums_kernel`` and ``_sample_kernel``:
+``stratified_sample(priorities, uniforms, batch_size)`` computes the block sums, their
+prefix and every target's index in one launch. With ``total`` the sum of the block sums,
+target ``i`` is ``(i + uniforms[i]) / batch_size * total`` in f32, and its index is the
+slot where the inclusive prefix of the priorities first exceeds it (searchsorted
+``right``).
 
 The search goes in two levels, as the Pallas kernel does: a binary search over the
 prefix of the block sums picks the block (clamped to the last), then the count of that
@@ -19,10 +20,10 @@ they round to the same f32 whatever the order, so the kernel and its plain versi
 agree bit for bit. On integer priorities every sum is exact either way, and the result
 is the Pallas kernel's bit for bit.
 
-What bounds it on an H100: device-memory bytes, one read of the priorities for the block
-sums and one 8 KB block a target for the search; see ``csrc/stratified_sample.cu`` for
-the design. On a CPU tensor each function runs its plain version, which follows the
-Pallas kernel's interpret mode step by step.
+What bounds it on an H100: latency at deepq's 10240 slots, bytes at a million (one read
+of the priorities for the sums and one 8 KB block a target); see
+``csrc/stratified_sample.cu`` for the design. On a CPU tensor ``stratified_sample`` runs
+its plain version, which follows the Pallas kernels' interpret mode step by step.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from baselines_tpu_torch.ops import cuda_lib
 
 BLOCK = 2048  # priorities per block
 ROWS, ROW = 16, 128  # a block as 16 rows of 128
+MAX_BLOCKS = 32768  # the kernel keeps the prefix of the block sums in shared memory
 
 
 def _check_priorities(priorities: torch.Tensor) -> None:
@@ -44,33 +46,15 @@ def _check_priorities(priorities: torch.Tensor) -> None:
         raise ValueError(f"pad priorities to a nonzero multiple of {BLOCK}, got {n}")
     if not priorities.is_contiguous():
         raise ValueError("priorities must be contiguous")
-    if priorities.device.type not in ("cpu", "cuda"):
+    kind = priorities.device.type
+    if kind not in ("cpu", "cuda"):
         raise ValueError(f"the stratified sampler runs on cuda or cpu, not {priorities.device}")
-    if priorities.device.type == "cuda" and priorities.data_ptr() % 16:
+    if kind == "cuda" and priorities.data_ptr() % 16:
         raise ValueError("the stratified sampler needs 16-byte aligned priorities")
 
 
 def plain_block_sums(priorities: torch.Tensor) -> torch.Tensor:
     return priorities.view(-1, BLOCK).to(torch.float64).sum(dim=1).to(torch.float32)
-
-
-def block_sums(priorities: torch.Tensor) -> torch.Tensor:
-    """(N,) f32 priorities, N a multiple of 2048 -> (N / 2048,) f32 block sums."""
-    _check_priorities(priorities)
-    if priorities.device.type == "cpu":
-        return plain_block_sums(priorities)
-    out = torch.empty((priorities.shape[0] // BLOCK,), dtype=torch.float32,
-                      device=priorities.device)
-    err = cuda_lib.library().btt_block_sums(
-        priorities.data_ptr(), priorities.shape[0], out.data_ptr(),
-        torch.cuda.current_stream(priorities.device).cuda_stream,
-    )
-    cuda_lib.check(err, "block_sums")
-    block_sums.launches += 1
-    return out
-
-
-block_sums.launches = 0
 
 
 def stratified_targets(block_prefix: torch.Tensor, uniforms: torch.Tensor,
@@ -104,45 +88,40 @@ def plain_search(priorities: torch.Tensor, sums: torch.Tensor, uniforms: torch.T
     return (blk * BLOCK + torch.clamp(local, max=BLOCK - 1)).to(torch.int32)
 
 
-def stratified_search(priorities: torch.Tensor, sums: torch.Tensor, uniforms: torch.Tensor,
-                      batch_size: int) -> torch.Tensor:
-    """The sampled slots, (batch_size,) int32, from the priorities, their block sums and
-    one uniform in [0, 1) a target."""
+def stratified_sample(priorities: torch.Tensor, uniforms: torch.Tensor, batch_size: int,
+                      return_block_sums: bool = False):
+    """``batch_size`` slots drawn in proportion to ``priorities`` with stratified targets
+    (pallas_sampler.py:118-166): (N,) f32 priorities, N a multiple of 2048 (pad with
+    zeros), and (batch_size,) f32 uniforms in [0, 1) -> (batch_size,) int32. With
+    ``return_block_sums``, also the (N / 2048,) f32 block sums the search used."""
     _check_priorities(priorities)
+    device = priorities.device
     nblocks = priorities.shape[0] // BLOCK
-    if sums.shape != (nblocks,) or sums.dtype != torch.float32 or not sums.is_contiguous():
-        raise ValueError(f"block sums must be contiguous f32 ({nblocks},), got {sums.dtype} "
-                         f"{tuple(sums.shape)}")
     if batch_size <= 0 or uniforms.shape != (batch_size,) or uniforms.dtype != torch.float32:
         raise ValueError(f"uniforms must be f32 ({batch_size},), got {uniforms.dtype} "
                          f"{tuple(uniforms.shape)}")
-    if not (sums.device == uniforms.device == priorities.device):
-        raise ValueError("priorities, block sums and uniforms must be on one device")
-    if priorities.device.type == "cpu":
-        return plain_search(priorities, sums, uniforms, batch_size)
-    lib = cuda_lib.library()
-    if nblocks > lib.btt_stratified_search_max_blocks():
-        raise ValueError(f"{nblocks} blocks exceed the search kernel's shared memory")
+    if uniforms.device != device:
+        raise ValueError("priorities and uniforms must be on one device")
+    if device.type == "cpu":
+        out = plain_stratified_sample(priorities, uniforms, batch_size)
+        return (out, plain_block_sums(priorities)) if return_block_sums else out
+    if nblocks > MAX_BLOCKS:
+        raise ValueError(f"{nblocks} blocks exceed the sampler kernel's shared memory, which "
+                         f"holds the prefix of at most {MAX_BLOCKS} block sums")
     uniforms = uniforms.contiguous()
-    out = torch.empty((batch_size,), dtype=torch.int32, device=priorities.device)
-    err = lib.btt_stratified_search(
-        priorities.data_ptr(), sums.data_ptr(), uniforms.data_ptr(), nblocks, batch_size,
-        out.data_ptr(), torch.cuda.current_stream(priorities.device).cuda_stream,
+    out = torch.empty((batch_size,), dtype=torch.int32, device=device)
+    sums = torch.empty((nblocks,), dtype=torch.float32, device=device) if return_block_sums \
+        else None
+    err = cuda_lib.library().btt_stratified_sample(
+        priorities.data_ptr(), uniforms.data_ptr(), priorities.shape[0], batch_size,
+        out.data_ptr(), None if sums is None else sums.data_ptr(), cuda_lib.current_stream(device),
     )
-    cuda_lib.check(err, "stratified_search")
-    stratified_search.launches += 1
-    return out
+    cuda_lib.check(err, "stratified_sample")
+    stratified_sample.launches += 1
+    return (out, sums) if return_block_sums else out
 
 
-stratified_search.launches = 0
-
-
-def stratified_sample(priorities: torch.Tensor, uniforms: torch.Tensor,
-                      batch_size: int) -> torch.Tensor:
-    """``batch_size`` slots drawn in proportion to ``priorities`` with stratified targets
-    (pallas_sampler.py:118-166): (N,) f32 priorities, N a multiple of 2048 (pad with
-    zeros), and (batch_size,) f32 uniforms in [0, 1) -> (batch_size,) int32."""
-    return stratified_search(priorities, block_sums(priorities), uniforms, batch_size)
+stratified_sample.launches = 0
 
 
 def plain_stratified_sample(priorities: torch.Tensor, uniforms: torch.Tensor,

@@ -12,16 +12,18 @@ Phases, each printing its seconds:
   4. the row-gather kernel against x[idx], on the PPO obs and one f32 field, and on the
      deepq replay sample (256 rows of the 10000-slot ring), with out-of-range indices,
      timed against index_select in three rounds of turns;
-  5. the stratified sampler's two kernels (block sums, search) against their plain
-     version, at a million slots with 32 and 256 targets and at the deepq path's 10240
-     padded slots with 256 targets: bit for bit on integer priorities, within 2 slots
-     on random ones, and the sampled frequencies of one heavy slot;
+  5. the stratified sampler's one launch against its plain version, at a million slots
+     with 32 and 256 targets, at the deepq path's 10240 padded slots with 256 targets and
+     at 35 edge shapes (1 to 512 blocks, 1 to 1024 targets): bit for bit on integer
+     priorities (block sums included), within 2 slots on random ones, and the sampled
+     frequencies of one heavy slot; timed in turns against cumsum + searchsorted and
+     the launch floor (a one-element op);
   6. main path 1: two full-width ppo2 updates (256 envs x 128 steps, cnn_s2d in bf16,
      AtariSim-v0 packed 4x4 space-to-depth), whose launch counts show the CNN and
      gather kernels on the path and whose logged losses must be finite;
   7. main path 2: deepq with prioritized, dueling, double-Q replay at the Atari
      defaults (64 envs, batch 256, cnn_s2d in bf16, 16384 steps, 193 training
-     iterations), whose launch counts show all four kernels on the path.
+     iterations), whose launch counts show all three kernels on the path.
 Then one JSON line with every kernel's numbers (launches summed over both main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits nonzero. It exits nonzero before building anything
@@ -188,7 +190,7 @@ def main() -> int:
 
     kernels = {}
     launchers = {"fused_cnn": fused_cnn_forward, "take_rows": take_rows,
-                 "block_sums": ss.block_sums, "stratified_search": ss.stratified_search}
+                 "stratified_sample": ss.stratified_sample}
     counts = {}  # main path -> kernel -> launches
 
     def reset_counts():
@@ -345,29 +347,52 @@ def main() -> int:
             require(bool((p >= 0).all()), "stratified_sample: a negative test priority")
             return p.reshape(-1).contiguous()
 
-        for n, batch in ((2 ** 20, 32), (2 ** 20, 256), (10240, 256)):
-            gen = torch.Generator(device=dev).manual_seed(n + batch)
+        def check_sampler(n, batch, gen):
+            """Bit for bit against the plain version on integer priorities, zero and
+            random uniforms, block sums included; on |randn| the largest slot difference
+            and the count of differing indices, which must be <= 2 and < 5 %."""
             ints = integer_priorities(gen, n)
             for u in (torch.zeros(batch, device=dev),
                       torch.rand(batch, generator=gen, device=dev)):
-                got = ss.stratified_sample(ints, u, batch)
+                got, sums = ss.stratified_sample(ints, u, batch, return_block_sums=True)
                 torch.cuda.synchronize()
                 require(got.dtype == torch.int32 and got.shape == (batch,),
                         "stratified_sample: wrong output type or shape")
-                require(torch.equal(ss.block_sums(ints), ss.plain_block_sums(ints)),
-                        f"block_sums at N={n}: not bit-exact on integer priorities")
+                require(torch.equal(sums, ss.plain_block_sums(ints)),
+                        f"stratified_sample at N={n}: block sums not bit-exact on integer "
+                        "priorities")
                 require(torch.equal(got, ss.plain_stratified_sample(ints, u, batch)),
                         f"stratified_sample at N={n}, B={batch}: not bit-exact on integer "
                         "priorities")
             prios = torch.randn(n, generator=gen, device=dev).abs()
             u = torch.rand(batch, generator=gen, device=dev)
-            got = ss.stratified_sample(prios, u, batch).long()
+            got, sums = ss.stratified_sample(prios, u, batch, return_block_sums=True)
+            got = got.long()
             want = ss.plain_stratified_sample(prios, u, batch).long()
             max_slots = int((got - want).abs().max())
             n_diff = int((got != want).sum())
             require(max_slots <= 2 and n_diff < 0.05 * batch,
                     f"stratified_sample at N={n}, B={batch}: {n_diff} indices differ, by up "
                     f"to {max_slots} slots")
+            sums_err = float((sums - ss.plain_block_sums(prios)).abs().max())
+            return prios, u, got, max_slots, n_diff, sums_err
+
+        # where the cluster's share of the blocks changes (1 to 17 blocks, and a million
+        # slots streamed from device memory) and where the targets fill part of a warp,
+        # a warp, more than one and several in turn
+        edges = [(nb, b) for nb in (1, 5, 8, 9, 16, 17, 512) for b in (1, 31, 256, 257, 1024)]
+        worst = 0
+        for nblocks, batch in edges:
+            gen = torch.Generator(device=dev).manual_seed(nblocks * 10007 + batch)
+            worst = max(worst, check_sampler(nblocks * ss.BLOCK, batch, gen)[3])
+        print(f"stratified_sample edges: {len(edges)} shapes (blocks 1, 5, 8, 9, 16, 17, 512 "
+              f"x targets 1, 31, 256, 257, 1024) bit-exact on integer priorities, |randn| "
+              f"within {worst} slots [{card}]", flush=True)
+
+        floor_x = torch.zeros(1, device=dev)
+        for n, batch in ((2 ** 20, 32), (2 ** 20, 256), (10240, 256)):
+            gen = torch.Generator(device=dev).manual_seed(n + batch)
+            prios, u, got, max_slots, n_diff, sums_err = check_sampler(n, batch, gen)
             heavy = torch.full((n,), 1e-3, device=dev)
             heavy[7] = n * 1e-3  # about half the total mass
             hits = sum(int((ss.stratified_sample(heavy, torch.rand(batch, generator=gen,
@@ -377,58 +402,41 @@ def main() -> int:
             require(abs(frac - expect) < 0.05, f"stratified_sample: slot 7 drawn {frac:.3f} "
                     f"of the time, expected {expect:.3f}")
 
-            sums = ss.block_sums(prios)
-            sums_err = float((sums - ss.plain_block_sums(prios)).abs().max())
-            total = torch.cumsum(sums.double(), 0)[-1].float()
+            total = torch.cumsum(ss.plain_block_sums(prios).double(), 0)[-1].float()
             targets = ss.stratified_targets(total.view(1), u, batch)
-            # device times from CUDA graphs: each of these calls takes less device time
-            # than the host spends issuing it; eager_ms is the whole op called eagerly
-            eager_ms = time_ms(lambda: ss.stratified_sample(prios, u, batch), 200)
-            ms = graph_ms(lambda: ss.stratified_sample(prios, u, batch), 50)
-            sums_ms = graph_ms(lambda: ss.block_sums(prios), 50)
-            search_ms = graph_ms(lambda: ss.stratified_search(prios, sums, u, batch), 50)
+            # device times from CUDA graphs, in three rounds of turns: the op, the library's
+            # cumsum + searchsorted, and the launch floor, a one-element add timed the same
+            # way, which no kernel launched here can beat; the eager call is host time
+            t, readings = turns_ms({
+                "kernel": lambda: ss.stratified_sample(prios, u, batch),
+                "cumsum+searchsorted": lambda: torch.searchsorted(
+                    torch.cumsum(prios, 0), targets, right=True),
+                "floor": lambda: floor_x.add_(1)}, 50, rounds=3)
+            ms, library_ms, floor_ms = (t[k] for k in ("kernel", "cumsum+searchsorted", "floor"))
             plain_ms = graph_ms(lambda: ss.plain_stratified_sample(prios, u, batch), 10)
-            plain_sums_ms = graph_ms(lambda: ss.plain_block_sums(prios), 50)
-            plain_search_ms = graph_ms(lambda: ss.plain_search(prios, sums, u, batch), 10)
-            library_ms = graph_ms(
-                lambda: torch.searchsorted(torch.cumsum(prios, 0), targets, right=True), 50)
-            library_sums_ms = graph_ms(lambda: prios.view(-1, ss.BLOCK).sum(1), 50)
-            # bytes each function must move: every input read once, every output written
-            # once. The search reads only the blocks this run's targets land in (at most
-            # min(batch, nblocks) of them); the whole op reads every priority once.
-            nblocks = n // ss.BLOCK
-            hit_blocks = int(torch.unique(got // ss.BLOCK).numel())
+            eager_ms = time_ms(lambda: ss.stratified_sample(prios, u, batch), 200)
+            # bytes the op must move: every priority and uniform read once, every index
+            # written once
             bms, by = bound_ms(0, 4 * n + 8 * batch)
-            sums_bms, sums_by = bound_ms(0, 4 * n + 4 * nblocks)
-            search_bms, search_by = bound_ms(
-                0, 4 * nblocks + hit_blocks * 4 * ss.BLOCK + 8 * batch)
+            print(f"launch floor (one-element add_, graph_ms, in turns with the sampler at "
+                  f"N={n}, B={batch}): {floor_ms:.4f} ms [{card}]", flush=True)
             print(f"stratified_sample N={n} B={batch} [{card}]: integer priorities bit-exact "
-                  f"(zero and random uniforms); |randn|: {n_diff} of {batch} indices differ "
-                  f"from plain (max {max_slots} slots), block sums max abs err {sums_err:.3g}; "
-                  f"heavy slot {frac:.4f} vs {expect:.4f}; "
-                  f"device times: whole op {ms:.4f} ms (eager call {eager_ms:.4f}, plain "
-                  f"{plain_ms:.4f}, cumsum+searchsorted "
-                  f"{library_ms:.4f}, bound {bms:.6f} {by}); block_sums {sums_ms:.4f} ms "
-                  f"(plain {plain_sums_ms:.4f}, sum {library_sums_ms:.4f}, bound "
-                  f"{sums_bms:.6f}); search {search_ms:.4f} ms (plain {plain_search_ms:.4f}, "
-                  f"bound {search_bms:.6f}, {hit_blocks} of {nblocks} blocks hit)", flush=True)
+                  f"(zero and random uniforms, block sums); |randn|: {n_diff} of {batch} "
+                  f"indices differ from plain (max {max_slots} slots), block sums max abs err "
+                  f"{sums_err:.3g}; heavy slot {frac:.4f} vs {expect:.4f}; device times: one "
+                  f"launch {ms:.4f} ms, cumsum+searchsorted {library_ms:.4f}, launch floor "
+                  f"{floor_ms:.4f}, plain {plain_ms:.4f}, bound {bms:.6f} ({by}); in turns: "
+                  f"{lead(readings, 'kernel', 'cumsum+searchsorted')}; eager call "
+                  f"{eager_ms:.4f} ms", flush=True)
             if n == 10240:  # the deepq path's padded buffer and batch
-                shape = f"N={n}, B={batch}"
-                kernels["block_sums"] = dict(
-                    name="block_sums", route="cuda",
+                kernels["stratified_sample"] = dict(
+                    name="stratified_sample", route="cuda",
                     source="baselines_tpu_torch/csrc/stratified_sample.cu",
-                    replaces="baselines_tpu/data/pallas_sampler.py:41", shape=shape,
-                    max_abs_err=sums_err, ms=sums_ms, plain_ms=plain_sums_ms, bound_ms=sums_bms,
-                    bound_by=sums_by, library_ms=library_sums_ms,
+                    replaces="baselines_tpu/data/pallas_sampler.py:41 and :48",
+                    shape=f"N={n}, B={batch}", max_abs_err=float(max_slots), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
                 )
-                kernels["stratified_search"] = dict(
-                    name="stratified_search", route="cuda",
-                    source="baselines_tpu_torch/csrc/stratified_sample.cu",
-                    replaces="baselines_tpu/data/pallas_sampler.py:48", shape=shape,
-                    max_abs_err=float(max_slots), ms=search_ms, plain_ms=plain_search_ms,
-                    bound_ms=search_bms, bound_by=search_by, library_ms=None,
-                )
-            del ints, prios, heavy, got, want
+            del prios, heavy, got
 
     with Phase("main path 1: ppo2 learn, 2 updates of 256 x 128"):
         recorder = RecordingOutput()
@@ -490,9 +498,8 @@ def main() -> int:
         require(train_iters == 193, f"{train_iters} training iterations, expected 193")
         require(c["fused_cnn"] >= 256, f"fused_cnn_forward launched {c['fused_cnn']} times, "
                 "expected >= 256")
-        require(c["block_sums"] == train_iters and c["stratified_search"] == train_iters,
-                f"the sampler ran {c['block_sums']} / {c['stratified_search']} times, expected "
-                f"{train_iters}")
+        require(c["stratified_sample"] == train_iters,
+                f"the sampler ran {c['stratified_sample']} times, expected {train_iters}")
         require(c["take_rows"] >= 5 * train_iters,
                 f"take_rows launched {c['take_rows']} times, expected >= {5 * train_iters}")
         state = model.state

@@ -105,25 +105,60 @@ def _integer_priorities(gen, n, dev, block_total=4096):
 ])
 def test_stratified_sample_kernel_matches_plain(dev, n, batch):
     """Bit for bit on integer priorities, with zero uniforms (targets on block and slot
-    boundaries) and random ones; within 2 slots, under 5 % differing, on |randn|."""
+    boundaries) and random ones, block sums included; within 2 slots, under 5 %
+    differing, on |randn|. One launch a call."""
     from baselines_tpu_torch.ops import stratified_sample as ss
 
     gen = torch.Generator(device=dev).manual_seed(n + batch)
     ints = _integer_priorities(gen, n, dev)
-    before = (ss.block_sums.launches, ss.stratified_search.launches)
+    before = ss.stratified_sample.launches
     for u in (torch.zeros(batch, device=dev), torch.rand(batch, generator=gen, device=dev)):
-        got = ss.stratified_sample(ints, u, batch)
+        got, sums = ss.stratified_sample(ints, u, batch, return_block_sums=True)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == (batch,)
-        assert torch.equal(ss.block_sums(ints), ss.plain_block_sums(ints))
+        assert torch.equal(sums, ss.plain_block_sums(ints))
         assert torch.equal(got, ss.plain_stratified_sample(ints, u, batch))
-    assert (ss.block_sums.launches, ss.stratified_search.launches) == (before[0] + 4, before[1] + 2)
+    assert ss.stratified_sample.launches == before + 2
     prios = torch.randn(n, generator=gen, device=dev).abs()
     u = torch.rand(batch, generator=gen, device=dev)
     got = ss.stratified_sample(prios, u, batch).long()
     want = ss.plain_stratified_sample(prios, u, batch).long()
     assert int((got - want).abs().max()) <= 2
     assert float((got != want).float().mean()) < 0.05
+
+
+@pytest.mark.parametrize("batch", [1, 31, 256, 257, 1024])
+@pytest.mark.parametrize("nblocks", [1, 5, 8, 9, 16, 17, 512])
+def test_stratified_sample_kernel_cluster_and_target_edges(dev, nblocks, batch):
+    """Bit for bit on integer priorities (zero and random uniforms, block sums included)
+    where the cluster's share of the blocks changes (fewer blocks than a cluster's 8, 8, 9,
+    16, 17, and a million slots streamed from device memory) and where the targets fill
+    part of a warp, one warp, more than one and several in turn; within 2 slots on
+    |randn|."""
+    from baselines_tpu_torch.ops import stratified_sample as ss
+
+    n = nblocks * 2048
+    gen = torch.Generator(device=dev).manual_seed(nblocks * 10007 + batch)
+    ints = _integer_priorities(gen, n, dev)
+    for u in (torch.zeros(batch, device=dev), torch.rand(batch, generator=gen, device=dev)):
+        got, sums = ss.stratified_sample(ints, u, batch, return_block_sums=True)
+        torch.cuda.synchronize()
+        assert torch.equal(sums, ss.plain_block_sums(ints))
+        assert torch.equal(got, ss.plain_stratified_sample(ints, u, batch))
+    prios = torch.randn(n, generator=gen, device=dev).abs()
+    u = torch.rand(batch, generator=gen, device=dev)
+    got = ss.stratified_sample(prios, u, batch).long()
+    want = ss.plain_stratified_sample(prios, u, batch).long()
+    assert int((got - want).abs().max()) <= 2
+    assert int((got != want).sum()) <= 0.05 * batch
+
+
+def test_stratified_sample_kernel_names_its_shared_memory_limit(dev):
+    from baselines_tpu_torch.ops import stratified_sample as ss
+
+    prios = torch.zeros((ss.MAX_BLOCKS + 1) * 2048, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.stratified_sample(prios, torch.zeros(8, device=dev), 8)
 
 
 def test_prioritized_buffer_samples_through_the_kernel(dev):
@@ -158,10 +193,10 @@ def test_prioritized_buffer_samples_through_the_kernel(dev):
     new = torch.randint(1, 5, (cap,), generator=gen, device=dev).float()
     state = rb.update_priorities(state, torch.arange(cap, device=dev), new)
     u = torch.rand(batch, generator=gen, device=dev)
-    before = ss.stratified_search.launches
+    before = ss.stratified_sample.launches
     got, idx, weights = rb.sample(state, Uniforms(u), batch, beta=0.4)
     torch.cuda.synchronize()
-    assert ss.stratified_search.launches == before + 1
+    assert ss.stratified_sample.launches == before + 1
     want = ss.plain_stratified_sample(state.priorities, u, batch).long().clamp(max=cap - 1)
     assert torch.equal(idx, want)
     assert torch.equal(got["obs"], state.buffer.data["obs"][idx])

@@ -1,7 +1,7 @@
-"""The port and chip_smoke.py stand without JAX: in a process where jax, flax, optax
-and baselines_tpu cannot be imported, every module of baselines_tpu_torch imports, and
-chip_smoke.py, finding no card, exits nonzero with its "no CUDA device" message rather
-than an ImportError."""
+"""The port, chip_smoke.py and sampler_grid.py stand without JAX: in a process where
+jax, flax, optax and baselines_tpu cannot be imported, every module of
+baselines_tpu_torch imports, and chip_smoke.py and sampler_grid.py, finding no card,
+exit nonzero with their "no CUDA device" message rather than an ImportError."""
 
 import os
 import subprocess
@@ -49,3 +49,19 @@ def test_chip_smoke_without_a_card_exits_nonzero_before_importing_anything():
     assert "exit code 1" in proc.stdout
     assert "no CUDA device" in proc.stderr
     assert "ImportError" not in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_sampler_grid_without_a_card_exits_nonzero_without_jax():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so sampler_grid.py would run")
+    proc = _run(
+        "import runpy\n"
+        "try:\n"
+        "    runpy.run_path('sampler_grid.py', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    print('exit code', e.code)\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "exit code 1" in proc.stdout
+    assert "no CUDA device" in proc.stderr
+    assert "ImportError" not in proc.stderr

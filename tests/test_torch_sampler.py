@@ -12,21 +12,9 @@ import torch
 
 from baselines_tpu.data.pallas_sampler import BLOCK, pallas_stratified_sample
 from baselines_tpu_torch.ops import stratified_sample as ss
+from torch_parity import integer_priorities
 
 N = 8 * BLOCK  # the least size the Pallas kernel takes
-
-
-def integer_priorities(rng, nblocks: int, block_total: int = 4096) -> np.ndarray:
-    """Priorities in {0, 1, 2, 3} with runs of zeros and a last slot in each block that
-    brings the block's sum to ``block_total``: every sum is an exact integer, and with
-    zero uniforms and a power-of-two batch the targets land on block and slot
-    boundaries."""
-    p = rng.randint(0, 4, (nblocks, BLOCK)).astype(np.float32)
-    p[:, 100:300] = 0.0
-    p[:, -1] = 0.0
-    p[:, -1] = block_total - p.sum(axis=1)
-    assert (p >= 0).all()
-    return p.reshape(-1)
 
 
 def jax_sample(prios: np.ndarray, u: np.ndarray) -> np.ndarray:
@@ -111,13 +99,18 @@ def test_plain_takes_sizes_the_pallas_kernel_does_not(kind):
 
 
 def test_block_sums_and_search_compose():
+    """The plain block sums and plain search, composed, are the one wrapper's result, and
+    the block sums it returns on request are the plain ones."""
     rng = np.random.RandomState(3)
     prios = torch.from_numpy(integer_priorities(rng, 3))
-    sums = ss.block_sums(prios)
+    sums = ss.plain_block_sums(prios)
     assert sums.tolist() == [4096.0] * 3
     u = torch.from_numpy(rng.rand(40).astype(np.float32))  # not a multiple of 32
-    assert torch.equal(ss.stratified_search(prios, sums, u, 40), ss.stratified_sample(prios, u, 40))
-    assert torch.equal(ss.plain_stratified_sample(prios, u, 40), ss.stratified_sample(prios, u, 40))
+    got, got_sums = ss.stratified_sample(prios, u, 40, return_block_sums=True)
+    assert torch.equal(ss.plain_search(prios, sums, u, 40), got)
+    assert torch.equal(ss.plain_stratified_sample(prios, u, 40), got)
+    assert torch.equal(ss.stratified_sample(prios, u, 40), got)
+    assert torch.equal(got_sums, sums)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -134,9 +127,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ss.stratified_sample(prios, u, 9)  # uniforms of another length
     with pytest.raises(ValueError):
-        ss.stratified_search(prios, torch.ones(3), u, 8)
+        ss.stratified_sample(prios, u.double(), 8)  # uniforms of another type
     with pytest.raises(ValueError):
         ss.stratified_sample(prios.to("meta"), u.to("meta"), 8)  # neither cuda nor cpu
-    before = (ss.block_sums.launches, ss.stratified_search.launches)
+    before = ss.stratified_sample.launches
     ss.stratified_sample(prios, u, 8)
-    assert (ss.block_sums.launches, ss.stratified_search.launches) == before  # CPU: no launch
+    assert ss.stratified_sample.launches == before  # CPU: no launch

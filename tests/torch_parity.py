@@ -189,3 +189,16 @@ def assert_update_params_match(jnew_params, tpol, start) -> None:
         delta_want = want[name].double() - base
         assert float(delta_want.abs().max()) > 0, name
         assert rel_err(p.double() - base, delta_want) < 2e-4, name
+
+
+def integer_priorities(rng, nblocks: int, block_total: int = 4096) -> np.ndarray:
+    """Priorities in {0, 1, 2, 3} for the stratified sampler, (nblocks * 2048,) f32, with
+    runs of zeros and a last slot in each block that brings the block's sum to
+    ``block_total``: every sum is an exact integer, and with zero uniforms and a batch of
+    nblocks times a power of two the targets land on block and slot boundaries."""
+    p = rng.randint(0, 4, (nblocks, 2048)).astype(np.float32)
+    p[:, 100:300] = 0.0
+    p[:, -1] = 0.0
+    p[:, -1] = block_total - p.sum(axis=1)
+    assert (p >= 0).all()
+    return p.reshape(-1)
