@@ -7,6 +7,9 @@
 - ``ClipAdam``: clip by global norm, then Adam, then ``p -= lr * u``, with the
   arithmetic of ``optax.chain(clip_by_global_norm, scale_by_adam)`` and
   ``apply_updates_lr``.
+- ``Model``: what ``learn`` returns, with ``save``/``load`` of the params (the
+  ``--save_path`` payload) and ``save_full``/``load_full`` of the whole train state.
+- ``evaluate``: a bounded rollout of a trained model, the ``--play`` report.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
+from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.envs.registry import make_env
 from baselines_tpu_torch.envs.vec import VecMonitor, VecS2D, VecTorchEnv
 
@@ -51,10 +55,42 @@ class Trajectory:
 
 @dataclass
 class Model:
-    """What ``learn`` returns: the trained policy and the final train state."""
+    """What ``learn`` returns (common.py:429-521): the trained policy, the final train
+    state, and the optimizer and draws that the train state leaves out (the params live
+    in the policy's module, the Adam moments in the optimizer, the generator in the
+    draws)."""
 
     policy: object
     state: object
+    opt: object = None
+    draws: object = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.policy.module.parameters()).device
+
+    def save(self, path: str) -> None:
+        """The ``--save_path`` payload: the policy module's params. VecNormalize
+        statistics join it with VecNormalize (ROADMAP.md Queue 1, item 3)."""
+        ckpt.save_state(path, {"model_params": self.policy.module})
+
+    def load(self, path: str) -> "Model":
+        ckpt.load_state(path, {"model_params": self.policy.module}, map_location=self.device)
+        return self
+
+    def _train_tree(self) -> dict:
+        tree = {"params": self.policy.module, "state": self.state, "opt": self.opt,
+                "rng": self.draws}
+        return {k: v for k, v in tree.items() if v is not None}
+
+    def save_full(self, path: str) -> None:
+        """The whole train state: params, optimizer moments and count, the learner's
+        state (env state, observations, counters, replay) and the generator's state."""
+        ckpt.save_state(path, self._train_tree())
+
+    def load_full(self, path: str) -> "Model":
+        self.state = ckpt.load_state(path, self._train_tree(), map_location=self.device)["state"]
+        return self
 
 
 @torch.no_grad()
@@ -89,6 +125,23 @@ def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int):
     return env_state, obs, last_done, traj, last_value
 
 
+@torch.no_grad()
+def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool = True):
+    """Roll the model's policy for ``nsteps`` from a reset of ``venv`` and report the
+    monitor's (mean episode return, mean episode length, episodes) (common.py:523-566).
+    ``deterministic`` takes ``mode_step``'s action, else ``step``'s sample."""
+    policy = model.policy
+    obs, env_state = venv.reset(draws)
+    for _ in range(nsteps):
+        if deterministic:
+            action = policy.mode_step(obs)[0]
+        else:
+            action = policy.step(obs, draws)[0]
+        obs, env_state, _, _, _ = venv.step(draws, env_state, action)
+    stats = VecMonitor.get_stats(env_state)
+    return float(stats.mean_return), float(stats.mean_length), int(stats.episodes)
+
+
 class ClipAdam:
     """Clip-then-Adam with the learning rate given at each step (ppo2/model.py:97-116
     order), matching optax: clip by global norm as ``g if norm < max else g / norm *
@@ -104,6 +157,16 @@ class ClipAdam:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def state_dict(self) -> dict:
+        """The moments and the step count, which sets the bias corrections."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for mine, theirs in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            mine.copy_(theirs)
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, grads, lr: float) -> None:

@@ -15,14 +15,23 @@ The epsilon-greedy act step of the bf16 ``cnn_s2d`` net runs the fused CNN kerne
 weights packed from the current params at every step, since the params change at every
 training iteration. Prioritized replay samples through the stratified-sampling kernel,
 where the JAX package leaves its Pallas sampler off.
+
+Checkpoints as dqn.py:388-496 (deepq/deepq.py:244-331): ``<checkpoint_path>/latest``
+holds the train fields (params, target params, Adam moments and count, ``t``,
+``n_target_syncs``), written every ``checkpoint_freq`` steps once training has started,
+and resumed with its progress; ``<checkpoint_path>/best`` is written when the
+100-episode mean return improves after more than 100 episodes, and restored without
+its progress at the end, so the returned model is the best seen. The envs and the
+replay start afresh on resume, as in the reference.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os.path as osp
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Sequence
 
 import numpy as np
@@ -31,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, not_ported
+from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import huber_loss
@@ -41,7 +51,7 @@ from baselines_tpu_torch.data.replay import ReplayBuffer
 from baselines_tpu_torch.envs.spaces import Discrete
 from baselines_tpu_torch.envs.vec import VecMonitor
 from baselines_tpu_torch.nn.networks import _ortho, get_network
-from baselines_tpu_torch.nn.policy import act_latent, encode_observation
+from baselines_tpu_torch.nn.policy import act_latent, encode_observation, encoded_shape
 
 
 class QNet(nn.Module):
@@ -275,11 +285,9 @@ def learn(
     (for example ``dtype=torch.bfloat16``). ``chunk_timing``, when a list, gets the
     wall time after each chunk, the device synchronized."""
     if param_noise:
-        not_ported("deepq", "param_noise", "slice 5 (its perturbation comes with ddpg)")
-    if checkpoint_path is not None or load_path is not None:
-        not_ported("deepq", "checkpoint_path and load_path", "slice 2 (item 8, checkpoints)")
+        not_ported("deepq", "param_noise", "item 7 (its perturbation comes with ddpg)")
     if mesh is not None:
-        not_ported("deepq", "mesh", "slice 3 (data parallelism)")
+        not_ported("deepq", "mesh", "item 5 (data parallelism)")
     device = resolve_device(device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
@@ -291,7 +299,8 @@ def learn(
     n_actions = venv.action_space.n
 
     init_gen = torch.Generator().manual_seed(seed)
-    net = get_network(network, generator=init_gen, **network_kwargs)
+    net = get_network(network, ob_shape=encoded_shape(venv.observation_space),
+                      generator=init_gen, **network_kwargs)
     qnet = QNet(net, n_actions, hiddens=hiddens, dueling=dueling, layer_norm=layer_norm,
                 generator=init_gen).to(device)
     policy = QPolicy(qnet, venv.observation_space, n_actions)
@@ -324,6 +333,40 @@ def learn(
         double_q=double_q, exploration=exploration, beta_schedule=beta_schedule,
     )
 
+    model = Model(policy, state, opt, draws)
+    if load_path is not None:
+        model.load(load_path)
+
+    latest_file = best_file = None
+    best_mean_reward = None
+    ckpt_marker = -1
+
+    def train_fields(s: DQNTrainState) -> dict:
+        return {"params": qnet, "target_params": s.target, "opt": opt, "t": s.t,
+                "n_target_syncs": s.n_target_syncs}
+
+    def restore_fields(s: DQNTrainState, path: str, with_progress: bool) -> DQNTrainState:
+        tree = ckpt.load_state(path, map_location=device)
+        tree.pop("best_mean_reward", None)
+        fields = train_fields(s)
+        if not with_progress:
+            for k in ("t", "n_target_syncs"):
+                tree.pop(k)
+                fields.pop(k)
+        fields = ckpt.from_tree(tree, fields)
+        return replace(s, t=fields.get("t", s.t),
+                       n_target_syncs=fields.get("n_target_syncs", s.n_target_syncs))
+
+    if checkpoint_path is not None:
+        latest_file = osp.join(checkpoint_path, "latest")
+        best_file = osp.join(checkpoint_path, "best")
+        if osp.exists(latest_file):
+            state = restore_fields(state, latest_file, with_progress=True)
+            logger.log(f"Resumed training state from {latest_file} at t={state.t}")
+        if osp.exists(best_file):
+            best_mean_reward = float(ckpt.load_state(best_file)["best_mean_reward"])
+            logger.log(f"Found best checkpoint (mean reward {best_mean_reward:.1f})")
+
     steps_per_chunk = chunk_size * nenvs
     nchunks = max(total_timesteps // steps_per_chunk, 1) if total_timesteps > 0 else 0
     tstart = time.time()
@@ -334,6 +377,20 @@ def learn(
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             chunk_timing.append(time.time())
+        if latest_file is not None and checkpoint_freq:
+            marker = state.t // checkpoint_freq
+            if state.t >= learning_starts and marker > ckpt_marker:
+                ckpt_marker = marker
+                ckpt.save_state(latest_file, train_fields(state))
+                stats = VecMonitor.get_stats(state.env_state)
+                episodes, mean100 = int(stats.episodes), float(stats.mean_return)
+                if episodes > 100 and (best_mean_reward is None or mean100 > best_mean_reward):
+                    if print_freq is not None:
+                        logger.log(f"Saving best model: mean reward {best_mean_reward} -> "
+                                   f"{mean100:.1f}")
+                    best_mean_reward = mean100
+                    ckpt.save_state(best_file, dict(train_fields(state),
+                                                    best_mean_reward=mean100))
         if print_freq and chunk % max(1, (print_freq * 100) // steps_per_chunk) == 0:
             stats = VecMonitor.get_stats(state.env_state)
             episodes = int(stats.episodes)  # waits for the device
@@ -343,4 +400,9 @@ def learn(
             logger.logkv("% time spent exploring", int(100 * float(exploration.value(state.t))))
             logger.logkv("fps", int(state.t / (time.time() - tstart)))
             logger.dumpkvs()
-    return Model(policy, state)
+    if best_file is not None and osp.exists(best_file):
+        if print_freq is not None and best_mean_reward is not None:
+            logger.log(f"Restored model with mean reward: {best_mean_reward:.1f}")
+        state = restore_fields(state, best_file, with_progress=False)
+    model.state = state
+    return model

@@ -10,6 +10,13 @@ learning rate and clip range annealed by the remaining fraction of training.
 Ported so far: feedforward policies on one device. Each update is a rollout, GAE, then
 the epochs; every epoch draws a fresh permutation and gathers every field of the batch
 through the row-gather kernel (``ops/gather.py``).
+
+Checkpoints as ppo.py:544-602: ``save_interval`` writes the whole train state (params,
+Adam moments and count, env state, observations, ``update_idx`` and the generator's
+state) to ``<log dir>/checkpoints/<update:05d>``, and a run with ``save_interval`` and a
+log dir resumes from the latest of them, so that a killed run picks up where it stopped
+and draws what the uninterrupted run would have drawn. An explicit ``load_path`` loads
+params only and wins over that resume.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, not_ported, run_rollout
 from baselines_tpu_torch.core import logger
+from baselines_tpu_torch.core.checkpoint import latest_checkpoint, periodic_path
 from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import explained_variance
 from baselines_tpu_torch.core.rng import Draws
@@ -152,7 +160,7 @@ def learn(
     *,
     env=None,
     env_id: str | None = None,
-    network: str = "cnn_s2d",
+    network: str = "mlp",
     total_timesteps: int,
     seed: int | None = None,
     num_envs: int = 8,
@@ -184,13 +192,10 @@ def learn(
 
     Takes every keyword of the JAX package's ``learn``; those whose part is not ported
     yet raise ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that
-    brings it. The default network stays ``"cnn_s2d"`` (the JAX package's is ``"mlp"``)
-    until ``mlp`` is ported. ``pipeline=None`` picks the on-device rollout, as the JAX
-    package does for a device env. ``device`` is the card unless the caller passes
-    ``"cpu"``; ``env_kwargs`` go to ``build_env`` (for example ``s2d=4``) and the
-    remaining keywords to the network (for example ``dtype=torch.bfloat16``)."""
-    if save_interval or load_path is not None:
-        not_ported("ppo2", "save_interval and load_path", "item 2 (checkpoints)")
+    brings it. ``pipeline=None`` picks the on-device rollout, as the JAX package does
+    for a device env. ``device`` is the card unless the caller passes ``"cpu"``;
+    ``env_kwargs`` go to ``build_env`` (for example ``s2d=4``) and the remaining
+    keywords to the network (for example ``dtype=torch.bfloat16``)."""
     if value_network not in (None, "shared"):
         not_ported("ppo2", f"value_network={value_network!r}", "item 4")
     if microbatch_size is not None:
@@ -222,9 +227,20 @@ def learn(
         nupdates=nupdates, adv_norm=adv_norm, clip_value=clip_value,
     )
 
+    model = Model(policy, state, opt, draws)
+    if load_path is not None:
+        model.load(load_path)
+    start_update = 0
+    if save_interval and logger.get_dir() and load_path is None:
+        latest = latest_checkpoint(logger.get_dir())
+        if latest is not None:
+            state = model.load_full(latest).state
+            start_update = state.update_idx
+            logger.log(f"Resuming from checkpoint {latest} (update {start_update})")
+
     tfirststart = time.time()
-    tlastlog, lastlog_update = tfirststart, 0
-    for update in range(1, nupdates + 1):
+    tlastlog, lastlog_update = tfirststart, start_update
+    for update in range(start_update + 1, nupdates + 1):
         state, metrics = update_fn(state, draws)
         if update % log_interval == 0 or update == 1:
             metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
@@ -243,4 +259,7 @@ def learn(
                 loss_key = "loss" in k or k in ("approxkl", "clipfrac", "policy_entropy")
                 logger.logkv(f"loss/{k}" if loss_key else k, v)
             logger.dumpkvs()
-    return Model(policy, state)
+        model.state = state
+        if save_interval and (update % save_interval == 0 or update == 1) and logger.get_dir():
+            model.save_full(periodic_path(logger.get_dir(), update))
+    return model

@@ -3,11 +3,13 @@
 
 - conv kernels HWIO -> OIHW;
 - Dense kernels (in, out) -> Linear weights (out, in);
-- the fc layer's input order stays NHWC (7, 7, 64) -> 3136 on both sides, since the
-  port's network flattens in NHWC order;
-- names ``c1``, ``c2``, ``c3``, ``fc1`` of the network (nn/networks.py:139-143),
-  ``pi``, ``vf`` of the policy (nn/policy.py:75-88) and the QNet streams of deepq
-  (algos/dqn/dqn.py:54-81).
+- LayerNorm ``scale`` -> ``weight``;
+- the fc layer's input order stays NHWC on both sides, since the port's CNNs flatten in
+  NHWC order;
+- the port's modules carry the flax names, so each flax leaf maps to the module of its
+  own name: ``mlp_fc{i}`` and ``LayerNorm_{i}`` of ``mlp``, ``c1``, ``c2``, ``c3``,
+  ``fc1`` of ``cnn`` and ``cnn_s2d`` (nn/networks.py:61-143), ``pi``, ``vf`` of the
+  policy (nn/policy.py:75-88) and the QNet streams of deepq (algos/dqn/dqn.py:54-81).
 """
 
 from __future__ import annotations
@@ -30,13 +32,22 @@ def _layer(prefix: str, leaf: dict) -> dict:
     }
 
 
+def _module(prefix: str, leaf: dict) -> dict:
+    """One flax module's leaves: a LayerNorm's (``scale``) or a Dense or Conv layer's."""
+    if "scale" in leaf:
+        return {f"{prefix}weight": torch.tensor(np.asarray(leaf["scale"], np.float32)),
+                f"{prefix}bias": torch.tensor(np.asarray(leaf["bias"], np.float32))}
+    return _layer(prefix, leaf)
+
+
 def network_state_dict(params: dict) -> dict:
-    """A NatureCNNS2D's flax params ({'c1': {'kernel', 'bias'}, ...}, with or without
-    the outer 'params') -> its state_dict."""
+    """A network's flax params (``mlp``: {'mlp_fc0': ..., 'LayerNorm_0': ...}; ``cnn``
+    and ``cnn_s2d``: {'c1': ..., 'fc1': ...}; with or without the outer 'params') -> its
+    state_dict, each flax module mapped to the port's module of the same name."""
     params = params.get("params", params)
     out = {}
-    for name in ("c1", "c2", "c3", "fc1"):
-        out.update(_layer(f"{name}.", params[name]))
+    for name, leaf in params.items():
+        out.update(_module(f"{name}.", leaf))
     return out
 
 
@@ -58,11 +69,6 @@ def q_state_dict(params: dict) -> dict:
     params = params.get("params", params)
     out = {f"network.{k}": v for k, v in network_state_dict(params["network"]).items()}
     for name, leaf in params.items():
-        if name == "network":
-            continue
-        if "_ln" in name:
-            out[f"{name}.weight"] = torch.tensor(np.asarray(leaf["scale"], np.float32))
-            out[f"{name}.bias"] = torch.tensor(np.asarray(leaf["bias"], np.float32))
-        else:
-            out.update(_layer(f"{name}.", leaf))
+        if name != "network":
+            out.update(_module(f"{name}.", leaf))
     return out

@@ -28,6 +28,13 @@ class Draws:
         return torch.randint(low, high, shape, generator=self.generator, device=self.device,
                              dtype=torch.int32)
 
+    def state_dict(self) -> dict:
+        """The generator's state, a CPU byte tensor also for a generator on the card."""
+        return {"generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.generator.set_state(state["generator"].cpu())
+
     def permutation(self, n: int) -> torch.Tensor:
         """A random permutation of range(n), int64."""
         return torch.randperm(n, generator=self.generator, device=self.device)

@@ -33,8 +33,11 @@ def _where_done(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def _select_state(done, reset_state, state):
+    """The reset state where done, field by field through nested dataclasses."""
+    if not dataclasses.is_dataclass(state):
+        return _where_done(done, reset_state, state)
     return dataclasses.replace(state, **{
-        f.name: _where_done(done, getattr(reset_state, f.name), getattr(state, f.name))
+        f.name: _select_state(done, getattr(reset_state, f.name), getattr(state, f.name))
         for f in dataclasses.fields(state)
     })
 

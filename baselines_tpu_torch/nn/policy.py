@@ -2,7 +2,8 @@
 
 ``PolicyValueNet`` is a latent network with a categorical head (orthogonal init, gain
 0.01) and a value head (gain 1.0) on the shared latent. ``Policy.step`` and
-``Policy.value`` serve the rollout, without gradients: when the network is the
+``Policy.value`` serve the rollout and ``Policy.mode_step`` the deterministic play,
+without gradients: when the network is the
 space-to-depth Nature CNN in bf16, its forward is the fused CUDA kernel
 (``ops/fused_cnn.py``), whose arithmetic is that network's; any other network runs its
 own forward. The loss calls the module itself, with autograd.
@@ -28,6 +29,13 @@ def encode_observation(space, obs: torch.Tensor) -> torch.Tensor:
     if isinstance(space, Box):
         return obs
     raise NotImplementedError(f"the port cannot encode observations for {space!r} yet")
+
+
+def encoded_shape(space) -> tuple:
+    """The shape of one observation as ``encode_observation`` gives it."""
+    if isinstance(space, Discrete):
+        return (space.n,)
+    return tuple(space.shape)
 
 
 def uses_fused_kernel(network: nn.Module) -> bool:
@@ -86,15 +94,26 @@ class Policy:
         return action, value, pd.neglogp(action)
 
     @torch.no_grad()
+    def mode_step(self, obs: torch.Tensor, packed=None):
+        """(action, value) with the most probable action, the first of equal maxima as
+        ``jnp.argmax`` takes it (policy.py:131-134), for deterministic play."""
+        logits, value = self.module.heads(act_latent(self.module.network, obs, packed))
+        return CategoricalPd(logits).mode(), value
+
+    @torch.no_grad()
     def value(self, obs: torch.Tensor, packed=None) -> torch.Tensor:
         return self.module.heads(act_latent(self.module.network, obs, packed))[1]
 
 
-def build_policy(ob_space, ac_space, network: str = "cnn_s2d", *, device,
+def build_policy(ob_space, ac_space, network: str = "mlp", *, device,
                  generator: torch.Generator | None = None, **network_kwargs) -> Policy:
-    """policies.build_policy for a shared latent and a Discrete action space."""
+    """policies.build_policy for a shared latent, a ``Box`` observation and a
+    ``Discrete`` action space."""
     if not isinstance(ac_space, Discrete):
         raise NotImplementedError(f"the port has only categorical policies, not {ac_space!r}")
-    net = get_network(network, generator=generator, **network_kwargs)
+    if not isinstance(ob_space, Box):
+        raise NotImplementedError(f"the port's policies take Box observations, not {ob_space!r}")
+    net = get_network(network, ob_shape=encoded_shape(ob_space), generator=generator,
+                      **network_kwargs)
     module = PolicyValueNet(net, ac_space.n, generator).to(device)
     return Policy(module, ob_space, ac_space)

@@ -23,7 +23,17 @@ Phases, each printing its seconds:
      gather kernels on the path and whose logged losses must be finite;
   7. main path 2: deepq with prioritized, dueling, double-Q replay at the Atari
      defaults (64 envs, batch 256, cnn_s2d in bf16, 16384 steps, 193 training
-     iterations), whose launch counts show all three kernels on the path.
+     iterations), whose launch counts show all three kernels on the path;
+  8. main path 3, the CLI on CartPole-v1 through baselines_tpu_torch.run.main:
+     a. ppo2 with mlp at 1024 envs x 128 steps, 4 epochs x 4 minibatches, 2 updates,
+        --save_path and --play: finite losses, 48 gather launches, a play report;
+     b. --load_path of that file, --num_timesteps=0 --play: the same params bit for bit
+        and the same play report;
+     c. deepq at the classic-control defaults with a checkpoint_path, 1280 steps: the
+        `latest` checkpoint written, 5 gather launches a training iteration;
+     d. the row gather against x[idx] at the CartPole shapes, f32 (131072, 4) obs and an
+        f32 (131072,) field by a 131072-row permutation, timed in turns against
+        index_select.
 Then one JSON line with every kernel's numbers (launches summed over both main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits nonzero. It exits nonzero before building anything
@@ -32,10 +42,15 @@ when there is no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -123,6 +138,24 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+class Tee:
+    """A text stream that writes through to another and keeps what it wrote."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
 class Phase:
     def __init__(self, name: str):
         self.name = name
@@ -144,6 +177,7 @@ def main() -> int:
             return 1
         from baselines_tpu_torch.algos.dqn import dqn
         from baselines_tpu_torch.algos.dqn.defaults import atari as dqn_atari_defaults
+        from baselines_tpu_torch import run as cli
         from baselines_tpu_torch.algos.ppo.ppo import learn
         from baselines_tpu_torch.core import logger
         from baselines_tpu_torch.nn.networks import NatureCNNS2D
@@ -535,12 +569,130 @@ def main() -> int:
               f"{float(replay.max_priority):.4f}; peak device memory {peak / 2**30:.2f} GiB")
         print(f"logged keys [{card}]: {sorted(recorder.rows[-1])}", flush=True)
 
+    def run_cli(argv):
+        """run.main(argv) with its standard output kept; returns (model, output)."""
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            try:
+                model = cli.main(argv)
+            finally:
+                logger.reset()
+        torch.cuda.synchronize()
+        return model, tee.text()
+
+    def play_report(out: str) -> str:
+        lines = [ln for ln in out.splitlines() if ln.startswith("episode_rew mean=")]
+        require(len(lines) == 1, f"expected one play report, got {lines}")
+        return lines[0]
+
+    with Phase("main path 3: the CLI on CartPole-v1 (ppo2 and deepq)"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        try:
+            # a. bench.py:388-397's MLP secondary at full width: 1024 envs x 128 steps
+            model_path = os.path.join(tmp, "ppo2_cartpole.pt")
+            nenv, nsteps = 1024, 128
+            argv = ["--alg=ppo2", "--env=CartPole-v1", "--network=mlp", "--seed=0",
+                    f"--num_env={nenv}", f"--nsteps={nsteps}", "--nminibatches=4",
+                    "--noptepochs=4", "--log_interval=1", "--play"]
+            reset_counts()
+            start = time.perf_counter()
+            model_a, out_a = run_cli(argv + [f"--num_timesteps={2 * nenv * nsteps}",
+                                             f"--save_path={model_path}",
+                                             f"--log_path={os.path.join(tmp, 'a')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_ppo2"] = c = read_counts()
+            require(c["take_rows"] == 48, f"take_rows launched {c['take_rows']} times in the "
+                    "CLI's ppo2 run, expected 48 (6 fields x 4 epochs x 2 updates)")
+            with open(os.path.join(tmp, "a", "progress.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            require(len(rows) == 2, f"expected 2 logged rows, got {len(rows)}")
+            for row in rows:
+                for key, val in row.items():
+                    if key.startswith("loss/"):
+                        require(math.isfinite(float(val)), f"logged {key} = {val} is not finite")
+            report_a = play_report(out_a)
+            require(model_a.state.obs.shape == (nenv, 4) and model_a.device.type == "cuda",
+                    "the CLI's ppo2 state has the wrong shape or device")
+            rate = 2 * nenv * nsteps / float(rows[-1]["misc/time_elapsed"])
+            print(f"main path 3a [{card}]: launches {c}; 2 updates of {nenv} x {nsteps} in "
+                  f"{float(rows[-1]['misc/time_elapsed']):.2f} s = {rate:.0f} env-steps/s "
+                  f"(first update included); logged fps {[int(r['fps']) for r in rows]}; "
+                  f"eprewmean {[float(r['eprewmean']) for r in rows]}; run.main with save "
+                  f"and play {elapsed:.2f} s; {report_a}", flush=True)
+
+            # b. the saved file back through --load_path, nothing trained, the same play
+            model_b, out_b = run_cli(argv + ["--num_timesteps=0", f"--load_path={model_path}",
+                                             f"--log_path={os.path.join(tmp, 'b')}"])
+            saved, loaded = model_a.policy.module.state_dict(), model_b.policy.module.state_dict()
+            require(saved.keys() == loaded.keys()
+                    and all(torch.equal(saved[k], loaded[k]) for k in saved),
+                    "the loaded params differ from the saved ones")
+            report_b = play_report(out_b)
+            require(report_b == report_a, f"play after load: {report_b}, after training: "
+                    f"{report_a}")
+            print(f"main path 3b [{card}]: {len(saved)} param tensors loaded bit for bit; "
+                  f"{report_b}, the same as after training", flush=True)
+
+            # c. deepq at the classic-control defaults (1 env, learning_starts 1000,
+            # checkpoint_freq 10000): latest is written at the first chunk past 1000 steps
+            ckpt_dir = os.path.join(tmp, "dqn")
+            steps = 1280
+            train_iters = sum(1 for t in range(1, steps + 1) if t >= 1000)
+            reset_counts()
+            start = time.perf_counter()
+            model_c, _ = run_cli(["--alg=deepq", "--env=CartPole-v1", "--seed=0",
+                                  f"--num_timesteps={steps}", f"--checkpoint_path={ckpt_dir}",
+                                  f"--log_path={os.path.join(tmp, 'c')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_deepq"] = c = read_counts()
+            require(c["take_rows"] == 5 * train_iters, f"take_rows launched {c['take_rows']} "
+                    f"times in the CLI's deepq run, expected {5 * train_iters}")
+            require(model_c.state.t == steps, f"deepq ran to t {model_c.state.t}")
+            latest = torch.load(os.path.join(ckpt_dir, "latest"), weights_only=True,
+                                map_location="cpu")
+            require(latest["t"] == 1024 and set(latest) == {
+                "params", "target_params", "opt", "t", "n_target_syncs"},
+                f"latest holds {sorted(latest)} at t {latest.get('t')}")
+            print(f"main path 3c [{card}]: launches {c}; {train_iters} training iterations; "
+                  f"{steps} env steps in {elapsed:.2f} s with set-up; latest written at t "
+                  f"{latest['t']}", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # d. the gather at the CartPole shapes of path 3a: obs rows of 16 bytes and one
+        # 4-byte field, by the epoch's permutation of 131072 rows
+        n = 1024 * 128  # one update's batch
+        gen = torch.Generator(device=dev).manual_seed(8)
+        perm = torch.randperm(n, device=dev, generator=gen)
+        cartpole_shapes = []
+        for x in (torch.randn((n, 4), device=dev, generator=gen),
+                  torch.randn((n,), device=dev, generator=gen)):
+            got = take_rows(x, perm)
+            require(torch.equal(got, x[perm]), f"take_rows on f32 {tuple(x.shape)} differs "
+                    "from x[idx]")
+            t, readings = turns_ms({"kernel": lambda: take_rows(x, perm),
+                                    "plain": lambda: x[perm],
+                                    "index_select": lambda: x.index_select(0, perm)}, 50,
+                                   rounds=3)
+            bms, by = bound_ms(0, 2 * x.numel() * 4 + perm.numel() * 8)
+            shape = f"f32 {tuple(x.shape)} by ({n},) int64"
+            cartpole_shapes.append(dict(shape=shape, max_abs_err=0.0, ms=t["kernel"],
+                                        plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                                        library_ms=t["index_select"]))
+            print(f"take_rows CartPole {shape}: bit-exact; device times: kernel "
+                  f"{t['kernel']:.4f} ms, plain x[idx] {t['plain']:.4f} ms, index_select "
+                  f"{t['index_select']:.4f} ms, bound {bms:.4f} ms ({by}); in turns: "
+                  f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+        kernels["take_rows"]["cartpole_shapes"] = cartpole_shapes
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    line = {"kernels": [{k: kernels[name][k] for k in order} for name in launchers]}
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "cartpole_shapes")
+    line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
+                        for name in launchers]}
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -202,3 +202,61 @@ def test_prioritized_buffer_samples_through_the_kernel(dev):
     assert torch.equal(got["obs"], state.buffer.data["obs"][idx])
     assert torch.equal(got["reward"], state.buffer.data["reward"][idx])
     assert bool(torch.isfinite(weights).all()) and float(weights.max()) <= 1.0
+
+
+def test_cartpole_step_on_the_card_matches_the_cpu(dev):
+    """CartPole's step on the card against the same step on the CPU, rtol 1e-6 / atol
+    1e-7: the card's sin/cos may round otherwise, and the divisions are true f32
+    divisions on both (not products with a reciprocal)."""
+    from baselines_tpu_torch.envs.classic.cartpole import CartPole, CartPoleState
+
+    gen = torch.Generator().manual_seed(0)
+    v = (torch.rand((4, 4096), generator=gen) - 0.5) * 0.4
+    v[1] *= 10
+    v[3] *= 10
+    action = torch.randint(0, 2, (4096,), generator=gen, dtype=torch.int32)
+    env = CartPole()
+    cpu = env.step(CartPoleState(*v), action)
+    card = env.step(CartPoleState(*v.to(dev)), action.to(dev))
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-6, atol=1e-7)
+    assert torch.equal(card[3].cpu(), cpu[3]) and 0 < int(cpu[3].sum()) < 4096
+
+
+def test_checkpoints_cross_between_the_card_and_the_cpu(dev, tmp_path):
+    """A ppo2 model trained on the card loads into a CPU learner through ``load_path``,
+    and a CPU model into a card learner; a run resumed on the card from its periodic
+    checkpoint (the CUDA generator's state saved as CPU bytes) ends with the
+    uninterrupted run's params bit for bit."""
+    import shutil
+
+    from baselines_tpu_torch.algos.ppo.ppo import learn
+    from baselines_tpu_torch.core import logger
+
+    kwargs = dict(env_id="CartPole-v1", num_envs=16, nsteps=32, nminibatches=2,
+                  noptepochs=2, seed=0, log_interval=100)
+
+    def run(logdir, device, **kw):
+        logger.configure(dir=str(logdir), format_strs=[])
+        try:
+            return learn(device=device, **dict(kwargs, **kw))
+        finally:
+            logger.reset()
+
+    on_card = run(tmp_path / "card", "cuda", total_timesteps=3 * 512, save_interval=1)
+    on_card.save(str(tmp_path / "card.pt"))
+    on_cpu = run(tmp_path / "cpu", "cpu", total_timesteps=0,
+                 load_path=str(tmp_path / "card.pt"))
+    for p, q in zip(on_card.policy.module.parameters(), on_cpu.policy.module.parameters()):
+        assert q.device.type == "cpu" and torch.equal(p.cpu(), q)
+    on_cpu.save(str(tmp_path / "cpu.pt"))
+    back = run(tmp_path / "back", "cuda", total_timesteps=0, load_path=str(tmp_path / "cpu.pt"))
+    for p, q in zip(on_card.policy.module.parameters(), back.policy.module.parameters()):
+        assert q.device.type == "cuda" and torch.equal(p, q)
+
+    resumed_dir = tmp_path / "resumed" / "checkpoints"
+    resumed_dir.mkdir(parents=True)
+    shutil.copy(tmp_path / "card" / "checkpoints" / "00002", resumed_dir / "00002")
+    resumed = run(tmp_path / "resumed", "cuda", total_timesteps=3 * 512, save_interval=1)
+    assert resumed.state.update_idx == on_card.state.update_idx == 3
+    for p, q in zip(on_card.policy.module.parameters(), resumed.policy.module.parameters()):
+        assert torch.equal(p, q)

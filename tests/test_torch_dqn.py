@@ -312,7 +312,7 @@ def test_slice_state_matches_jax(slice_runs):
 @pytest.mark.parametrize("prioritized", [True, False], ids=["prioritized", "uniform"])
 def test_learn_runs_on_the_cpu_and_logs_the_jax_keys(tmp_path, prioritized):
     """The entry point at a tiny size, with either buffer: the log keys and cadence of
-    dqn.py:476-490, and the options of other slices raise."""
+    dqn.py:476-490, and the options of later items raise."""
     configure(dir=str(tmp_path), format_strs=["json"])
     try:
         model = dqn.learn(total_timesteps=104, device="cpu", **dict(
@@ -328,7 +328,24 @@ def test_learn_runs_on_the_cpu_and_logs_the_jax_keys(tmp_path, prioritized):
     assert model.state.n_target_syncs == 13
     assert isinstance(model.state.replay.buffer if prioritized else model.state.replay,
                       ReplayState)
-    for option in (dict(param_noise=True), dict(checkpoint_path="x"), dict(load_path="x"),
-                   dict(mesh=object())):
+    for option in (dict(param_noise=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, **option))
+
+
+@pytest.mark.parametrize("option", ["checkpoint_path", "load_path"])
+def test_checkpoint_options_work(tmp_path, option):
+    """``checkpoint_path`` writes ``latest`` once training has started and a second run
+    resumes its step count; ``load_path`` starts from the params of a saved model."""
+    if option == "checkpoint_path":
+        kwargs = dict(LEARN, checkpoint_path=str(tmp_path), checkpoint_freq=8, device="cpu")
+        first = dqn.learn(total_timesteps=16, **kwargs)
+        assert (tmp_path / "latest").exists() and first.state.t == 16
+        assert dqn.learn(total_timesteps=16, **kwargs).state.t == 32
+    else:
+        saved = dqn.learn(total_timesteps=16, device="cpu", **LEARN)
+        saved.save(str(tmp_path / "model.pt"))
+        loaded = dqn.learn(total_timesteps=0, device="cpu", load_path=str(tmp_path / "model.pt"),
+                           **dict(LEARN, seed=1))
+        for p, q in zip(saved.policy.module.parameters(), loaded.policy.module.parameters()):
+            assert torch.equal(p, q)

@@ -5,16 +5,19 @@ The two ported options, ``clip_value=False`` (ppo1's plain value MSE) and
 ``adv_norm="batch"`` (advantages standardized once over the whole batch), run one full
 update against the JAX update with the same draws, as tests/test_torch_update.py does
 for the defaults. Every other keyword raises ``NotImplementedError`` naming the
-ROADMAP.md item that brings it, instead of falling into the network's keywords.
+ROADMAP.md item that brings it, instead of falling into the network's keywords, but
+``save_interval`` and ``load_path``, which write and read checkpoints.
 
 Each option must also change the update on these inputs, so that the comparison with
 JAX can tell a port that honours it from one that ignores it: ``clip_value=False``
 changes the value loss, ``adv_norm="batch"`` the policy loss."""
 
 import pytest
+import torch
 from torch_parity import assert_update_metrics_match, assert_update_params_match, one_ppo_update
 
 from baselines_tpu_torch.algos.ppo.ppo import learn
+from baselines_tpu_torch.core import logger
 
 
 OPTIONS = {"clip_value_false": ({"clip_value": False}, "value_loss"),
@@ -56,9 +59,32 @@ def test_option_update_params_match_jax(runs):
     assert_update_params_match(runs["jnew"].params, runs["tpol"], runs["start"])
 
 
+@pytest.mark.parametrize("option", ["save_interval", "load_path"])
+def test_checkpoint_keyword_works(tmp_path, option):
+    """``save_interval=1`` writes the whole train state at every update into the log
+    dir's checkpoints/; ``load_path`` starts from the params of a saved model."""
+    kwargs = dict(env_id="CartPole-v1", num_envs=2, nsteps=8, nminibatches=2, noptepochs=1,
+                  device="cpu", seed=0, log_interval=100)
+    logger.configure(dir=str(tmp_path), format_strs=[])
+    try:
+        if option == "save_interval":
+            model = learn(total_timesteps=2 * 16, save_interval=1, **kwargs)
+            assert sorted(p.name for p in (tmp_path / "checkpoints").iterdir()) == [
+                "00001", "00002"]
+            assert torch.load(tmp_path / "checkpoints" / "00002",
+                              weights_only=True)["state"]["update_idx"] == 2
+        else:
+            saved = learn(total_timesteps=16, **dict(kwargs, seed=1))
+            saved.save(str(tmp_path / "model.pt"))
+            model = learn(total_timesteps=0, load_path=str(tmp_path / "model.pt"), **kwargs)
+            for p, q in zip(saved.policy.module.parameters(), model.policy.module.parameters()):
+                assert torch.equal(p, q)
+    finally:
+        logger.reset()
+    assert type(model.policy.module.network).__name__ == "MLP"  # the JAX default network
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    ({"save_interval": 10}, "item 2"),
-    ({"load_path": "model.ckpt"}, "item 2"),
     ({"value_network": "copy"}, "item 4"),
     ({"microbatch_size": 64}, "item 4"),
     ({"pipeline": True}, "item 8"),

@@ -18,6 +18,7 @@ from baselines_tpu.algos.common import build_env as jax_build_env
 from baselines_tpu.algos.ppo.ppo import PPOTrainState as JaxTrainState
 from baselines_tpu.algos.ppo.ppo import make_update_fn as jax_make_update_fn
 from baselines_tpu.core.schedules import resolve_fraction_schedule as jax_schedule
+from baselines_tpu.envs.classic.cartpole import CartPole as JaxCartPole
 from baselines_tpu.nn.policy import build_policy as jax_build_policy
 from baselines_tpu_torch import convert
 from baselines_tpu_torch.algos.common import ClipAdam, build_env
@@ -59,11 +60,22 @@ class ReplayDraws:
 
 
 def push_reset(draws: ReplayDraws, env, key, num_envs: int) -> None:
-    """The draws of VecJaxEnv.reset(key) on AtariSim: its sprite positions, then
-    velocities."""
-    _, st = jax.vmap(env.reset)(jax.random.split(key, num_envs))
+    """The draws of VecJaxEnv.reset(key): on CartPole (behind its TimeLimit) the four
+    uniforms of each env, which are its observation; on AtariSim its sprite positions,
+    then velocities."""
+    obs, st = jax.vmap(env.reset)(jax.random.split(key, num_envs))
+    if isinstance(env.unwrapped, JaxCartPole):
+        draws.push("uniform", obs)
+        return
     draws.push("randint", st.x)
     draws.push("randint", st.v)
+
+
+def base_env(venv):
+    """The single JAX env under a chain of vec wrappers."""
+    while not hasattr(venv, "env"):
+        venv = venv.venv
+    return venv.env
 
 
 def push_env_step(draws: ReplayDraws, env, key, num_envs: int) -> None:
@@ -107,6 +119,70 @@ def policy_params(seed: int, n_actions: int = 6) -> dict:
                        "vf": layer((512, 1), 1.0)}}
 
 
+def mlp_policy_params(seed: int, ob_dim: int, n_actions: int, num_layers: int = 2,
+                      num_hidden: int = 64, layer_norm: bool = False) -> dict:
+    """Params of the JAX PolicyValueNet(MLP) in flax layout, made with numpy as
+    ``policy_params`` makes them; LayerNorm scales and biases away from 1 and 0."""
+    rng = np.random.RandomState(seed)
+
+    def layer(n_in, n_out, gain):
+        return {"kernel": (rng.randn(n_in, n_out) * gain / np.sqrt(n_in)).astype(np.float32),
+                "bias": (rng.randn(n_out) * 0.01).astype(np.float32)}
+
+    network, width = {}, ob_dim
+    for i in range(num_layers):
+        network[f"mlp_fc{i}"] = layer(width, num_hidden, np.sqrt(2))
+        if layer_norm:
+            network[f"LayerNorm_{i}"] = {
+                "scale": (1 + 0.1 * rng.randn(num_hidden)).astype(np.float32),
+                "bias": (0.1 * rng.randn(num_hidden)).astype(np.float32)}
+        width = num_hidden
+    return {"params": {"network": network, "pi": layer(width, n_actions, 0.01),
+                       "vf": layer(width, 1, 1.0)}}
+
+
+# several CartPole steps: each step's sin/cos ulp carries into the next state, so states
+# compared after a rollout are held to the update metrics' 1e-4 relative / 1e-6 absolute
+ROLLOUT_RTOL, ROLLOUT_ATOL = 1e-4, 1e-6
+CARTPOLE_THRESHOLDS = (2.4, 12 * 2 * np.pi / 360)  # |x|, |theta| (cartpole.py:39-40)
+THRESHOLD_MARGIN = 1e-5
+
+
+class RecordStates:
+    """Wraps a port env to keep the observation of every step before any reset, so a
+    test can assert that no CartPole state came within ``THRESHOLD_MARGIN`` of a
+    termination threshold: the port's and the JAX env's states differ by an ulp or so
+    (torch's sin/cos against XLA's), far less than that margin, so on these inputs a
+    done flag cannot flip between the two sides unseen."""
+
+    def __init__(self, env):
+        self.env = env
+        self.observation_space = env.observation_space
+        self.action_space = env.action_space
+        self.seen = []
+
+    def reset(self, draws, num_envs, device):
+        obs, state = self.env.reset(draws, num_envs, device)
+        self.seen.append(obs.clone())
+        return obs, state
+
+    def step(self, state, action):
+        out = self.env.step(state, action)
+        self.seen.append(out[0].clone())
+        return out
+
+    def min_margin(self) -> float:
+        return threshold_margin(torch.cat(self.seen))
+
+
+def threshold_margin(obs: torch.Tensor) -> float:
+    """The least distance of CartPole observations (..., 4) from a termination threshold."""
+    obs = obs.reshape(-1, 4).double()
+    x_margin = (CARTPOLE_THRESHOLDS[0] - obs[:, 0].abs()).abs().min()
+    theta_margin = (CARTPOLE_THRESHOLDS[1] - obs[:, 2].abs()).abs().min()
+    return float(min(x_margin, theta_margin))
+
+
 def rel_err(got, want) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
@@ -117,23 +193,29 @@ UPDATE_HPARAMS = dict(nsteps=NSTEPS, nminibatches=NMB, noptepochs=NEPOCHS, gamma
                       lam=0.95, ent_coef=0.01, vf_coef=0.5, nupdates=1)
 
 
-def one_ppo_update(**options) -> dict:
+def one_ppo_update(env_id: str = "AtariSim-v0", **options) -> dict:
     """One full ppo2 update of the port and of the JAX package on the CPU, at 8 envs x
-    16 steps of AtariSim-v0 packed by VecS2D, cnn_s2d in f32, 2 epochs of 2 minibatches,
-    with ``options`` (``adv_norm``, ``clip_value``) passed to both ``make_update_fn``.
+    16 steps, 2 epochs of 2 minibatches, with ``options`` (``adv_norm``,
+    ``clip_value``) passed to both ``make_update_fn``: on AtariSim-v0 packed by VecS2D
+    with cnn_s2d in f32, or on CartPole-v1 with mlp.
 
     Both start from the same weights (carried across by convert.py) and the same env
     state. The port is handed the very draws the JAX update makes, rebuilt from the same
     key splits (algos/ppo/ppo.py:374-375, algos/common.py:228-230): the Gumbel uniforms
     and env reset draws of every rollout step, then the epoch permutations. Returns the
-    new states and metrics of both sides, the port's policy and its starting weights."""
-    venv = jax_build_env("AtariSim-v0", NENVS, s2d=4)
-    jpol = jax_build_policy(venv.observation_space, venv.action_space, "cnn_s2d")
+    new states and metrics of both sides, the port's policy and its starting weights,
+    and on CartPole the port's env, which recorded every state it stepped through."""
+    atari = env_id == "AtariSim-v0"
+    network, s2d = ("cnn_s2d", 4) if atari else ("mlp", 0)
+    venv = jax_build_env(env_id, NENVS, s2d=s2d)
+    n_actions = venv.action_space.n
+    jpol = jax_build_policy(venv.observation_space, venv.action_space, network)
     tx = adam_optimizer(0.5, eps=1e-5)
     # learn()'s make_state (algos/ppo/ppo.py:508-521), with the params made by numpy
     key, kreset, _ = jax.random.split(jax.random.PRNGKey(0), 3)
     obs, env_state = venv.reset(kreset)
-    params = policy_params(0, venv.action_space.n)
+    params = (policy_params(0, n_actions) if atari else
+              mlp_policy_params(0, venv.observation_space.shape[0], n_actions))
     state = JaxTrainState(params=params, opt_state=tx.init(params), key=key,
                           env_state=env_state, obs=obs, rnn_state=None,
                           last_done=jnp.zeros((NENVS,), bool), update_idx=jnp.zeros((), jnp.int32))
@@ -142,16 +224,20 @@ def one_ppo_update(**options) -> dict:
                                         **options))
     jnew, jmetrics = update(state)
 
-    base = venv.venv.venv.env  # VecS2D -> VecMonitor -> VecJaxEnv -> AtariSim
+    base = base_env(venv)
     draws = ReplayDraws()
     push_reset(draws, base, kreset, NENVS)
     k = key
     for _ in range(NSTEPS):
-        k = push_rollout_step(draws, base, k, NENVS, venv.action_space.n)
+        k = push_rollout_step(draws, base, k, NENVS, n_actions)
     push_epochs(draws, k, NEPOCHS, NENVS * NSTEPS)
 
-    tvenv = build_env("AtariSim-v0", NENVS, device="cpu", s2d=4)
-    tpol = build_policy(tvenv.observation_space, tvenv.action_space, "cnn_s2d", device="cpu")
+    tvenv = build_env(env_id, NENVS, device="cpu", s2d=s2d)
+    recorder = None
+    if not atari:
+        recorder = RecordStates(tvenv.venv.env)
+        tvenv.venv.env = recorder
+    tpol = build_policy(tvenv.observation_space, tvenv.action_space, network, device="cpu")
     start = convert.policy_state_dict(params)
     tpol.module.load_state_dict(start)
     opt = ClipAdam(tpol.module.parameters(), 0.5, eps=1e-5)
@@ -165,7 +251,7 @@ def one_ppo_update(**options) -> dict:
     tnew, tmetrics = update_fn(tstate, draws)
     assert not draws.queue, "the port took fewer draws than the JAX update made"
     return dict(jnew=jnew, jmetrics=jmetrics, tnew=tnew, tmetrics=tmetrics, tpol=tpol,
-                start=start)
+                start=start, recorder=recorder)
 
 
 def assert_update_metrics_match(jm, tm) -> None:
