@@ -1,26 +1,35 @@
 """Shared learner scaffolding (counterpart of baselines_tpu/algos/common.py).
 
-- ``build_env``: env id -> monitored vector env (VecTorchEnv -> VecMonitor -> VecS2D).
+- ``build_env``: env id -> the JAX package's wrapper chain for a device env
+  ([ClipActions] -> VecTorchEnv -> VecMonitor -> [VecRewardScale] -> [VecNormalize] ->
+  [VecFrameStack] -> [VecS2D]).
 - ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
   returns a time-major trajectory.
 - ``ClipAdam``: clip by global norm, then Adam, then ``p -= lr * u``, with the
   arithmetic of ``optax.chain(clip_by_global_norm, scale_by_adam)`` and
   ``apply_updates_lr``.
-- ``Model``: what ``learn`` returns, with ``save``/``load`` of the params (the
-  ``--save_path`` payload) and ``save_full``/``load_full`` of the whole train state.
-- ``evaluate``: a bounded rollout of a trained model, the ``--play`` report.
+- ``Model``: what ``learn`` returns, with ``save``/``load`` of the params and the
+  VecNormalize statistics (the ``--save_path`` payload) and ``save_full``/``load_full``
+  of the whole train state.
+- ``evaluate``: a bounded rollout of a trained model, the ``--play`` report, under the
+  statistics the model was trained with.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 from baselines_tpu_torch.core import checkpoint as ckpt
-from baselines_tpu_torch.envs.registry import make_env
-from baselines_tpu_torch.envs.vec import VecMonitor, VecS2D, VecTorchEnv
+from baselines_tpu_torch.envs.base import ClipActions
+from baselines_tpu_torch.envs.registry import get_env_type, make_env
+from baselines_tpu_torch.envs.spaces import Box
+from baselines_tpu_torch.envs.vec import (VecFrameStack, VecMonitor, VecNormalize,
+                                          VecRewardScale, VecS2D, VecTorchEnv,
+                                          find_normalize_state, replace_normalize_stats)
 
 
 def not_ported(algo: str, option: str, where: str):
@@ -30,9 +39,25 @@ def not_ported(algo: str, option: str, where: str):
                               "of ROADMAP.md's Queue 1")
 
 
-def build_env(env_id: str, num_envs: int, *, device, s2d: int = 0):
-    """VecTorchEnv -> VecMonitor -> [VecS2D] (common.py:84-187 for a device env)."""
-    venv = VecMonitor(VecTorchEnv(make_env(env_id), num_envs, device))
+def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = None,
+              reward_scale: float = 1.0, frame_stack: int = 0, s2d: int = 0):
+    """The device env's chain of common.py:84-187: ClipActions on a ``Box`` action
+    space, VecTorchEnv, VecMonitor, VecRewardScale when ``reward_scale`` != 1 (outside
+    the monitor, whose statistics stay raw), VecNormalize when ``normalize`` (None:
+    only for mujoco envs), VecFrameStack when ``frame_stack`` > 1, VecS2D when
+    ``s2d``."""
+    env = make_env(env_id)
+    if isinstance(env.action_space, Box):
+        env = ClipActions(env)
+    venv = VecMonitor(VecTorchEnv(env, num_envs, device))
+    if reward_scale != 1.0:
+        venv = VecRewardScale(venv, reward_scale)
+    if normalize is None:
+        normalize = get_env_type(env_id) == "mujoco"
+    if normalize:
+        venv = VecNormalize(venv)
+    if frame_stack and frame_stack > 1:
+        venv = VecFrameStack(venv, frame_stack)
     if s2d:
         if s2d < 2:
             raise ValueError(f"--s2d must be a block size >= 2, got {s2d}")
@@ -69,13 +94,34 @@ class Model:
     def device(self) -> torch.device:
         return next(self.policy.module.parameters()).device
 
+    def _normalize_state(self):
+        """The NormalizeState of the training env's state, or None when the env is not
+        normalized."""
+        return find_normalize_state(getattr(self.state, "env_state", None))
+
     def save(self, path: str) -> None:
-        """The ``--save_path`` payload: the policy module's params. VecNormalize
-        statistics join it with VecNormalize (ROADMAP.md Queue 1, item 3)."""
-        ckpt.save_state(path, {"model_params": self.policy.module})
+        """The ``--save_path`` payload (common.py:464-478): the policy module's params,
+        and the VecNormalize statistics when the training env was normalized, so a model
+        replayed in a fresh process sees its observations scaled as in training."""
+        payload = {"model_params": self.policy.module}
+        ns = self._normalize_state()
+        if ns is not None:
+            payload["norm_ob_rms"] = ns.ob_rms
+            payload["norm_ret_rms"] = ns.ret_rms
+        ckpt.save_state(path, payload)
 
     def load(self, path: str) -> "Model":
-        ckpt.load_state(path, {"model_params": self.policy.module}, map_location=self.device)
+        """Load ``save``'s payload: the params, and the VecNormalize statistics into the
+        train state's env state where both the file and the env have them
+        (common.py:480-509)."""
+        tree = ckpt.load_state(path, map_location=self.device)
+        ckpt.from_tree(tree["model_params"], self.policy.module, "model_params")
+        ns = self._normalize_state()
+        if "norm_ob_rms" in tree and ns is not None:
+            ob_rms = ckpt.from_tree(tree["norm_ob_rms"], ns.ob_rms, "norm_ob_rms")
+            ret_rms = ckpt.from_tree(tree["norm_ret_rms"], ns.ret_rms, "norm_ret_rms")
+            self.state = dataclasses.replace(self.state, env_state=replace_normalize_stats(
+                self.state.env_state, ob_rms, ret_rms))
         return self
 
     def _train_tree(self) -> dict:
@@ -98,15 +144,19 @@ def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int):
     """nsteps of policy.step + venv.step (common.py:207-251).
 
     Returns (env_state, obs, last_done, traj, last_value). The policy's kernel weights
-    are packed once here and serve every step."""
+    are packed once here and serve every step. The actions are stored as sampled, in
+    the shape and dtype of the policy's ``PdType`` (a Gaussian sample unclipped, with the
+    ``neglogp`` of that sample); the env chain clips what it steps with."""
     packed = policy.pack()
     n, dev = venv.num_envs, obs.device
+    pdtype = policy.pdtype
 
     def buf(shape=(), dtype=torch.float32):
         return torch.empty((nsteps, n) + tuple(shape), dtype=dtype, device=dev)
 
     traj = Trajectory(
-        obs=buf(obs.shape[1:], obs.dtype), actions=buf(dtype=torch.int32), values=buf(),
+        obs=buf(obs.shape[1:], obs.dtype),
+        actions=buf(pdtype.sample_shape, pdtype.sample_dtype), values=buf(),
         neglogps=buf(), rewards=buf(), dones=buf(dtype=torch.bool), rnn_masks=buf(),
     )
     for t in range(nsteps):
@@ -129,8 +179,19 @@ def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int):
 def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool = True):
     """Roll the model's policy for ``nsteps`` from a reset of ``venv`` and report the
     monitor's (mean episode return, mean episode length, episodes) (common.py:523-566).
-    ``deterministic`` takes ``mode_step``'s action, else ``step``'s sample."""
+    ``deterministic`` takes ``mode_step``'s action, else ``step``'s sample. When the
+    model trained on a normalized env and ``venv`` is normalized too, its VecNormalize
+    starts from the trained statistics, so the reset's observations are already
+    normalized by them."""
     policy = model.policy
+    trained = model._normalize_state()
+    if trained is not None:
+        w = venv
+        while w is not None:
+            if isinstance(w, VecNormalize):
+                w.init_stats = (trained.ob_rms, trained.ret_rms)
+                break
+            w = getattr(w, "venv", None)
     obs, env_state = venv.reset(draws)
     for _ in range(nsteps):
         if deterministic:

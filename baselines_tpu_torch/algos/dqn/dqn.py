@@ -281,7 +281,9 @@ def learn(
     dqn.py:476-490 every ``(print_freq * 100) // (chunk_size * nenvs)`` chunks.
 
     ``device`` is the card unless the caller passes ``"cpu"``; ``env_kwargs`` go to
-    ``build_env`` (for example ``s2d=4``) and the remaining keywords to the network
+    ``build_env`` (``normalize``, ``reward_scale``, ``frame_stack``, ``s2d``), so the
+    replay stores the observations and ``info['terminal_obs']`` as the outermost
+    wrapper gives them; the remaining keywords go to the network
     (for example ``dtype=torch.bfloat16``). ``chunk_timing``, when a list, gets the
     wall time after each chunk, the device synchronized."""
     if param_noise:

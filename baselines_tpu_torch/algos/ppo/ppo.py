@@ -37,7 +37,6 @@ from baselines_tpu_torch.core.rng import Draws
 from baselines_tpu_torch.core.schedules import resolve_fraction_schedule
 from baselines_tpu_torch.data.gae import gae
 from baselines_tpu_torch.envs.vec import VecMonitor
-from baselines_tpu_torch.nn.distributions import CategoricalPd
 from baselines_tpu_torch.nn.policy import build_policy
 from baselines_tpu_torch.ops.gather import take_rows
 
@@ -64,8 +63,8 @@ def make_ppo_loss(policy, ent_coef: float, vf_coef: float, clip_value: bool = Tr
 
     def loss_fn(batch, advs, cliprange: float):
         obs, actions, returns, old_values, old_neglogps, _ = batch
-        logits, vpred = policy.module(obs)
-        pd = CategoricalPd(logits)
+        pdflat, vpred = policy.module(obs)
+        pd = policy.pdtype.pdfromflat(pdflat)
         neglogpac = pd.neglogp(actions)
         entropy = torch.mean(pd.entropy())
 
@@ -194,8 +193,9 @@ def learn(
     yet raise ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that
     brings it. ``pipeline=None`` picks the on-device rollout, as the JAX package does
     for a device env. ``device`` is the card unless the caller passes ``"cpu"``;
-    ``env_kwargs`` go to ``build_env`` (for example ``s2d=4``) and the remaining
-    keywords to the network (for example ``dtype=torch.bfloat16``)."""
+    ``env_kwargs`` go to ``build_env`` (``normalize``, ``reward_scale``,
+    ``frame_stack``, ``s2d``) and the remaining keywords to the network (for example
+    ``dtype=torch.bfloat16``)."""
     if value_network not in (None, "shared"):
         not_ported("ppo2", f"value_network={value_network!r}", "item 4")
     if microbatch_size is not None:

@@ -8,8 +8,11 @@
   NHWC order;
 - the port's modules carry the flax names, so each flax leaf maps to the module of its
   own name: ``mlp_fc{i}`` and ``LayerNorm_{i}`` of ``mlp``, ``c1``, ``c2``, ``c3``,
-  ``fc1`` of ``cnn`` and ``cnn_s2d`` (nn/networks.py:61-143), ``pi``, ``vf`` of the
-  policy (nn/policy.py:75-88) and the QNet streams of deepq (algos/dqn/dqn.py:54-81).
+  ``fc1`` of ``cnn`` and ``cnn_s2d`` (nn/networks.py:61-143), ``pi``, ``vf`` and, for a
+  ``Box`` action space, the diagonal Gaussian's ``logstd`` parameter of the policy
+  (nn/policy.py:73-88), and the QNet streams of deepq (algos/dqn/dqn.py:54-81). The
+  ``pi`` layer's width is the distribution's: the action count, the sum of a
+  MultiDiscrete's counts, or the Gaussian's dimension.
 """
 
 from __future__ import annotations
@@ -52,11 +55,14 @@ def network_state_dict(params: dict) -> dict:
 
 
 def policy_state_dict(params: dict) -> dict:
-    """A PolicyValueNet's flax params ({'network': ..., 'pi': ..., 'vf': ...}, with or
-    without the outer 'params') -> the port's PolicyValueNet state_dict."""
+    """A PolicyValueNet's flax params ({'network': ..., 'pi': ..., 'vf': ...} and
+    'logstd' for a Gaussian head, with or without the outer 'params') -> the port's
+    PolicyValueNet state_dict."""
     params = params.get("params", params)
     out = {f"network.{k}": v for k, v in network_state_dict(params["network"]).items()}
     out.update(_layer("pi.", params["pi"]))
+    if "logstd" in params:
+        out["logstd"] = torch.tensor(np.asarray(params["logstd"], np.float32))
     out.update(_layer("vf.", params["vf"]))
     return out
 

@@ -2,9 +2,9 @@
 
 The JAX package threads ``jax.random`` keys through its state; the port draws from one
 ``torch.Generator`` instead. Everything random that a run takes (env reset states, the
-Gumbel uniforms of action sampling, the epoch permutations) goes through a ``Draws``,
-so a test can hand the port the very numbers the JAX package drew by passing an object
-with the same three methods.
+Gumbel uniforms and Gaussian noise of action sampling, the identity envs' targets, the
+epoch permutations) goes through a ``Draws``, so a test can hand the port the very
+numbers the JAX package drew by passing an object with the same methods.
 """
 
 from __future__ import annotations
@@ -22,6 +22,10 @@ class Draws:
         """f32 uniforms in [low, high), as ``jax.random.uniform(key, shape, f32, low, high)``."""
         u = torch.rand(shape, generator=self.generator, device=self.device)
         return torch.clamp(u * (high - low) + low, min=low)
+
+    def normal(self, shape) -> torch.Tensor:
+        """f32 standard normals, as ``jax.random.normal(key, shape)``."""
+        return torch.randn(shape, generator=self.generator, device=self.device)
 
     def randint(self, low: int, high: int, shape) -> torch.Tensor:
         """int32 integers in [low, high)."""

@@ -63,7 +63,7 @@ class CartPole(TorchEnv):
         state = CartPoleState(*(vals[:, i].contiguous() for i in range(4)))
         return vals, state
 
-    def step(self, state: CartPoleState, action: torch.Tensor):
+    def step(self, draws, state: CartPoleState, action: torch.Tensor):
         force = torch.where(action == 1, self.FORCE_MAG, -self.FORCE_MAG).to(torch.float32)
         costheta = torch.cos(state.theta)
         sintheta = torch.sin(state.theta)

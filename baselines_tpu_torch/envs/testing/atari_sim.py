@@ -51,7 +51,7 @@ class AtariSim(TorchEnv):
         state = AtariSimState(x, v, torch.zeros((num_envs,), dtype=torch.int32, device=device))
         return self._obs(state), state
 
-    def step(self, state: AtariSimState, action: torch.Tensor):
+    def step(self, draws, state: AtariSimState, action: torch.Tensor):
         x = state.x + state.v
         bounce = (x < 4) | (x >= self.SIZE - 4)
         v = torch.where(bounce, -state.v, state.v)

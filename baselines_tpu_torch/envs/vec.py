@@ -7,9 +7,12 @@ Auto-reset matches the subprocess workers of the reference (subproc_vec_env.py:8
 where an env reports done, the returned obs and state are the reset ones, and the
 terminal observation is ``info['terminal_obs']``.
 
-Ported so far: ``VecTorchEnv`` (the batch with auto-reset), ``VecWrapper``,
-``VecMonitor`` with its ``EpisodeStats`` ring of the last 100 episodes, and ``VecS2D``
-with the packed 3-D layout.
+Ported: ``VecTorchEnv`` (the batch with auto-reset), ``VecWrapper``, ``VecMonitor``
+with its ``EpisodeStats`` ring of the last 100 episodes, ``VecFrameStack``,
+``VecRewardScale``, ``VecNormalize`` with ``find_normalize_state`` and
+``replace_normalize_stats``, and ``VecS2D`` with the packed 3-D layout. The dict-obs
+wrappers come with item 7 of ROADMAP.md's Queue 1, and the pipelined env pair's branch
+of the normalize helpers with item 8.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from baselines_tpu_torch.core.running_stats import RunningMeanStd, check_axis_name
 from baselines_tpu_torch.envs.base import TorchEnv
-from baselines_tpu_torch.envs.spaces import Box
+from baselines_tpu_torch.envs.spaces import Box, torch_dtype
 
 EPISODE_BUFFER = 100  # matches deque(maxlen=100) of epinfos, ppo2/ppo2.py:118
 
@@ -110,8 +114,9 @@ class VecTorchEnv:
     (counterpart of VecJaxEnv).
 
     The reset is computed at every step and selected where done: a branch on any(done)
-    would wait on the device at every step. Each step therefore takes one reset's
-    draws, as the JAX env derives one reset key per step."""
+    would wait on the device at every step. Each step therefore takes the env step's
+    draws (none for most envs), then one reset's draws, the order of ``kstep, kreset =
+    jax.random.split(key)`` in VecJaxEnv.step."""
 
     def __init__(self, env: TorchEnv, num_envs: int, device):
         self.env = env
@@ -124,7 +129,7 @@ class VecTorchEnv:
         return self.env.reset(draws, self.num_envs, self.device)
 
     def step(self, draws, state, actions):
-        obs, st, rew, done, info = self.env.step(state, actions)
+        obs, st, rew, done, info = self.env.step(draws, state, actions)
         info = dict(info)
         info["terminal_obs"] = obs
         robs, rst = self.env.reset(draws, self.num_envs, self.device)
@@ -216,3 +221,149 @@ class VecS2D(VecWrapper):
         if "terminal_obs" in info:
             info = dict(info, terminal_obs=self._pack(info["terminal_obs"]))
         return self._pack(obs), inner, rew, done, info
+
+
+@dataclass
+class FrameStackState:
+    inner: Any
+    frames: torch.Tensor  # (N, ..., C * k)
+
+
+class VecFrameStack(VecWrapper):
+    """The last k frames along the last (channel) axis (vec.py:257-303): on done the
+    stack is zeroed before the reset frame goes in, and ``info['terminal_obs']`` is the
+    terminal frame stacked onto the frames before it."""
+
+    def __init__(self, venv, k: int):
+        super().__init__(venv)
+        self.k = int(k)
+        sp = venv.observation_space
+        low = np.repeat(sp.low, self.k, axis=-1)
+        high = np.repeat(sp.high, self.k, axis=-1)
+        self.observation_space = Box(low, high, dtype=sp.dtype)
+        self._c = sp.shape[-1]
+
+    def _insert(self, frames: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
+        """Drop the oldest frame and append ``obs`` (jnp.roll then a set, vec.py:277-279)."""
+        return torch.cat([frames[..., self._c:], obs.to(frames.dtype)], dim=-1)
+
+    def reset(self, draws):
+        obs, inner = self.venv.reset(draws)
+        frames = torch.zeros((self.num_envs,) + self.observation_space.shape,
+                             dtype=torch_dtype(self.observation_space.dtype), device=obs.device)
+        frames = self._insert(frames, obs)
+        return frames, FrameStackState(inner, frames)
+
+    def unwrap_state(self, state):
+        return state.inner
+
+    def post(self, state, obs, inner, rew, done, info):
+        if "terminal_obs" in info:
+            info = dict(info, terminal_obs=self._insert(state.frames, info["terminal_obs"]))
+        frames = _where_done(done, torch.zeros_like(state.frames), state.frames)
+        frames = self._insert(frames, obs)
+        return frames, FrameStackState(inner, frames), rew, done, info
+
+
+class VecRewardScale(VecWrapper):
+    """reward *= scale, the ``--reward_scale`` flag (vec.py:419-432). It sits outside
+    VecMonitor, so the episode statistics stay in raw units, and inside VecNormalize,
+    whose return statistics see the scaled rewards."""
+
+    def __init__(self, venv, scale: float):
+        super().__init__(venv)
+        self.scale = float(scale)
+
+    def post(self, state, obs, inner, rew, done, info):
+        return obs, inner, rew * self.scale, done, info
+
+
+@dataclass
+class NormalizeState:
+    inner: Any
+    ob_rms: RunningMeanStd
+    ret_rms: RunningMeanStd
+    ret: torch.Tensor  # (N,) f32, the discounted return of each env's episode
+
+
+class VecNormalize(VecWrapper):
+    """Observation and return normalization by running statistics (vec.py:435-516,
+    after the reference's vec_normalize.py:4-47). The statistics are part of the env
+    state, so they are saved with the train state. ``reset`` folds the reset
+    observations into ``ob_rms``; each step folds in the new observations and the
+    discounted returns, divides the rewards by the return's standard deviation, and
+    moves ``info['terminal_obs']`` into the normalized space, where a replay learner
+    stores it beside the observations."""
+
+    def __init__(self, venv, ob: bool = True, ret: bool = True, clipob: float = 10.0,
+                 cliprew: float = 10.0, gamma: float = 0.99, epsilon: float = 1e-8,
+                 axis_name=None):
+        super().__init__(venv)
+        check_axis_name(axis_name)
+        self.ob = ob
+        self.ret_flag = ret
+        self.clipob = clipob
+        self.cliprew = cliprew
+        self.gamma = gamma
+        self.epsilon = epsilon
+        # trained statistics to start from at the next reset: evaluate sets them, so a
+        # saved model is replayed under the normalization it was trained with
+        self.init_stats = None
+
+    def _norm_obs(self, ob_rms: RunningMeanStd, obs: torch.Tensor) -> torch.Tensor:
+        if not self.ob:
+            return obs
+        return ob_rms.normalize(obs, clip=self.clipob, epsilon=self.epsilon)
+
+    def reset(self, draws):
+        obs, inner = self.venv.reset(draws)
+        if self.init_stats is not None:
+            ob_rms, ret_rms = self.init_stats
+        else:
+            ob_rms = RunningMeanStd.create(self.observation_space.shape, device=obs.device)
+            ret_rms = RunningMeanStd.create((), device=obs.device)
+        if self.ob:
+            ob_rms = ob_rms.update(obs)
+        ret = torch.zeros((self.num_envs,), dtype=torch.float32, device=obs.device)
+        return self._norm_obs(ob_rms, obs), NormalizeState(inner, ob_rms, ret_rms, ret)
+
+    def unwrap_state(self, state):
+        return state.inner
+
+    def post(self, state, obs, inner, rew, done, info):
+        ob_rms, ret_rms = state.ob_rms, state.ret_rms
+        ret = state.ret * self.gamma + rew
+        if self.ob:
+            ob_rms = ob_rms.update(obs)
+        if self.ret_flag:
+            ret_rms = ret_rms.update(ret)
+            rew = torch.clamp(rew / torch.sqrt(ret_rms.var + self.epsilon), -self.cliprew,
+                              self.cliprew)
+        ret = torch.where(done, torch.zeros_like(ret), ret)
+        new_state = NormalizeState(inner, ob_rms, ret_rms, ret)
+        if "terminal_obs" in info:
+            info = dict(info, terminal_obs=self._norm_obs(ob_rms, info["terminal_obs"]))
+        return self._norm_obs(ob_rms, obs), new_state, rew, done, info
+
+
+def find_normalize_state(env_state) -> NormalizeState | None:
+    """The NormalizeState in a chain of wrapper states, or None when the env is not
+    normalized (vec.py:519-532; the pipelined pair's branch comes with item 8)."""
+    while env_state is not None:
+        if isinstance(env_state, NormalizeState):
+            return env_state
+        env_state = getattr(env_state, "inner", None)
+    return None
+
+
+def replace_normalize_stats(env_state, ob_rms: RunningMeanStd, ret_rms: RunningMeanStd):
+    """``env_state`` with its NormalizeState's statistics swapped for the given ones, and
+    as it is when the chain has no NormalizeState (vec.py:535-551)."""
+    if env_state is None:
+        return None
+    if isinstance(env_state, NormalizeState):
+        return dataclasses.replace(env_state, ob_rms=ob_rms, ret_rms=ret_rms)
+    inner = getattr(env_state, "inner", None)
+    if inner is None:
+        return env_state
+    return dataclasses.replace(env_state, inner=replace_normalize_stats(inner, ob_rms, ret_rms))

@@ -3,11 +3,12 @@
 
 Env-type detection, per-algorithm defaults by env type, free-form ``--key=value``
 keywords over the defaults (an explicit ``--network`` beats them), ``--num_env``,
-``--s2d``, ``--save_path`` / ``--load_path``, ``--log_path`` and a ``--play`` report
-after training. The learners run on the card unless ``--device=cpu`` is given, a
-free-form keyword that reaches ``learn``. ``--reward_scale``, ``--save_video_interval``
-and ``--gamestate`` raise ``NotImplementedError`` naming the item of ROADMAP.md's
-Queue 1 that brings them.
+``--s2d``, ``--reward_scale``, ``--env_kwargs`` (for example ``"{'normalize': True}"``),
+``--save_path`` / ``--load_path``, ``--log_path`` and a ``--play`` report after
+training, under the model's VecNormalize statistics when it has them. The learners run
+on the card unless ``--device=cpu`` is given, a free-form keyword that reaches
+``learn``. ``--save_video_interval`` and ``--gamestate`` raise ``NotImplementedError``
+naming the item of ROADMAP.md's Queue 1 that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ def _default_network(env_type: str) -> str:
 
 def _reject_unported_env_flags(args) -> None:
     for given, flag, item in (
-        (args.reward_scale != 1.0, "--reward_scale", "item 3 (VecRewardScale)"),
         (args.save_video_interval, "--save_video_interval", "item 8 (envs/video.py)"),
         (args.gamestate, "--gamestate", "item 8 (the retro envs)"),
     ):
@@ -68,6 +68,8 @@ def train(args, extra_args):
             alg_kwargs["network"] = "cnn_s2d"
         elif net != "cnn_s2d":
             raise ValueError(f"--s2d only pairs with network=cnn/cnn_s2d, got {net!r}")
+    if args.reward_scale != 1.0:
+        env_kwargs["reward_scale"] = args.reward_scale
 
     logger.log(f"Training {args.alg} on {args.env} with arguments \n{alg_kwargs}")
     return learn(env_id=args.env, seed=args.seed, total_timesteps=int(args.num_timesteps),
@@ -90,9 +92,13 @@ def main(argv=None):
     if args.play:
         logger.log("Running trained model")
         # one env on the model's device, stepped deterministically for a bounded number
-        # of steps (the reference loops until interrupted)
+        # of steps (the reference loops until interrupted); normalized only when the
+        # model carries trained statistics, which evaluate starts the env from
         device = model.device
-        venv = build_env(args.env, 1, device=device, s2d=int(extra_args.get("s2d", 0) or 0))
+        venv = build_env(args.env, 1, device=device,
+                         normalize=model._normalize_state() is not None,
+                         frame_stack=int(extra_args.get("frame_stack", 0) or 0),
+                         s2d=int(extra_args.get("s2d", 0) or 0))
         ret, length, episodes = evaluate(model, venv, Draws(0, device), nsteps=PLAY_STEPS,
                                          deterministic=True)
         logger.log(f"episode_rew mean={ret} len={length} episodes={episodes}")

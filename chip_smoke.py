@@ -33,8 +33,22 @@ Phases, each printing its seconds:
         `latest` checkpoint written, 5 gather launches a training iteration;
      d. the row gather against x[idx] at the CartPole shapes, f32 (131072, 4) obs and an
         f32 (131072,) field by a 131072-row permutation, timed in turns against
-        index_select.
-Then one JSON line with every kernel's numbers (launches summed over both main paths,
+        index_select;
+  9. main path 4, continuous control and the env layer through run.main:
+     a. ppo2 with mlp (a diagonal-Gaussian head) on Pendulum-v1 at 1024 envs x 128
+        steps, 2 updates, --reward_scale=0.1, --env_kwargs="{'normalize': True}",
+        --save_path and --play: finite losses, 48 gather launches, ob_rms's count grown
+        by 2 x 131072, a play report;
+     b. --load_path of that file, --num_timesteps=0 --play: the params (logstd
+        included) and both running statistics bit for bit, the same play report;
+     c. deepq with prioritized replay on Acrobot-v1 at the classic-control defaults
+        (buffer 50000, batch 32), 1280 steps: one sampler launch and 5 gather launches a
+        training iteration, finite priorities and a finite TD loss;
+     d. the gather against x[idx] at this path's shapes (Pendulum's f32 (131072, 3) obs
+        and (131072, 1) actions by a permutation; 32 rows of Acrobot's (50000, 6) and
+        CartPole's (50000, 4) f32 rings) and the sampler at 51200 slots (25 blocks) with
+        32 targets, timed in turns against index_select and cumsum + searchsorted.
+Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits nonzero. It exits nonzero before building anything
 when there is no CUDA device.
@@ -178,6 +192,7 @@ def main() -> int:
         from baselines_tpu_torch.algos.dqn import dqn
         from baselines_tpu_torch.algos.dqn.defaults import atari as dqn_atari_defaults
         from baselines_tpu_torch import run as cli
+        from baselines_tpu_torch.algos.dqn.dqn import td_loss
         from baselines_tpu_torch.algos.ppo.ppo import learn
         from baselines_tpu_torch.core import logger
         from baselines_tpu_torch.nn.networks import NatureCNNS2D
@@ -685,12 +700,169 @@ def main() -> int:
                   f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
         kernels["take_rows"]["cartpole_shapes"] = cartpole_shapes
 
+    with Phase("main path 4: the CLI on Pendulum-v1 (ppo2, VecNormalize) and Acrobot-v1 "
+               "(prioritized deepq)"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_continuous_")
+        try:
+            # a. ppo2 with a Gaussian head at the width of path 3a, its env chain
+            # ClipActions -> VecMonitor -> VecRewardScale -> VecNormalize
+            model_path = os.path.join(tmp, "ppo2_pendulum.pt")
+            nenv, nsteps = 1024, 128
+            argv = ["--alg=ppo2", "--env=Pendulum-v1", "--network=mlp", "--seed=0",
+                    f"--num_env={nenv}", f"--nsteps={nsteps}", "--nminibatches=4",
+                    "--noptepochs=4", "--log_interval=1", "--play",
+                    "--env_kwargs={'normalize': True}"]
+            reset_counts()
+            start = time.perf_counter()
+            model_a, out_a = run_cli(argv + [f"--num_timesteps={2 * nenv * nsteps}",
+                                             "--reward_scale=0.1", f"--save_path={model_path}",
+                                             f"--log_path={os.path.join(tmp, 'a')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_ppo2_pendulum"] = c = read_counts()
+            require(c["take_rows"] == 48 and c["fused_cnn"] == 0 and c["stratified_sample"] == 0,
+                    f"the CLI's ppo2 run on Pendulum launched {c}, expected 48 gathers (6 fields "
+                    "x 4 epochs x 2 updates) and nothing else")
+            with open(os.path.join(tmp, "a", "progress.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            require(len(rows) == 2, f"expected 2 logged rows, got {len(rows)}")
+            for row in rows:
+                for key, val in row.items():
+                    if key.startswith("loss/"):
+                        require(math.isfinite(float(val)), f"logged {key} = {val} is not finite")
+            ns_a = model_a._normalize_state()
+            require(ns_a is not None, "the Pendulum model carries no VecNormalize statistics")
+            grown = float(ns_a.ob_rms.count) - (1e-4 + nenv)  # after the reset's fold
+            require(abs(grown - 2 * nenv * nsteps) <= 1, f"ob_rms's count grew by {grown}, "
+                    f"expected {2 * nenv * nsteps}")
+            report_a = play_report(out_a)
+            require(model_a.state.obs.shape == (nenv, 3) and model_a.device.type == "cuda"
+                    and model_a.policy.module.logstd.shape == (1, 1),
+                    "the CLI's Pendulum state has the wrong shape or device")
+            rate = 2 * nenv * nsteps / float(rows[-1]["misc/time_elapsed"])
+            print(f"main path 4a [{card}]: launches {c}; 2 updates of {nenv} x {nsteps} in "
+                  f"{float(rows[-1]['misc/time_elapsed']):.2f} s = {rate:.0f} env-steps/s "
+                  f"(first update included); logged fps {[int(r['fps']) for r in rows]}; "
+                  f"eprewmean {[float(r['eprewmean']) for r in rows]}; entropy "
+                  f"{[float(r['loss/policy_entropy']) for r in rows]}; ob_rms count "
+                  f"{float(ns_a.ob_rms.count):.1f}; run.main with save and play {elapsed:.2f} s; "
+                  f"{report_a}", flush=True)
+
+            # b. the saved file back through --load_path into a fresh normalized learner
+            model_b, out_b = run_cli(argv + ["--num_timesteps=0", f"--load_path={model_path}",
+                                             f"--log_path={os.path.join(tmp, 'b')}"])
+            saved, loaded = model_a.policy.module.state_dict(), model_b.policy.module.state_dict()
+            require(saved.keys() == loaded.keys() and "logstd" in saved
+                    and all(torch.equal(saved[k], loaded[k]) for k in saved),
+                    "the loaded params differ from the saved ones")
+            ns_b = model_b._normalize_state()
+            for name in ("ob_rms", "ret_rms"):
+                for field in ("mean", "var", "count"):
+                    require(torch.equal(getattr(getattr(ns_a, name), field),
+                                        getattr(getattr(ns_b, name), field)),
+                            f"the loaded {name}.{field} differs from the saved one")
+            report_b = play_report(out_b)
+            require(report_b == report_a, f"play after load: {report_b}, after training: "
+                    f"{report_a}")
+            print(f"main path 4b [{card}]: {len(saved)} param tensors (logstd included) and "
+                  f"both running statistics loaded bit for bit; {report_b}, the same as after "
+                  "training", flush=True)
+
+            # c. prioritized deepq at the classic-control defaults: the 50000-slot ring
+            # padded to 51200 slots, 25 blocks of the sampler, batch 32
+            steps = 1280
+            train_iters = sum(1 for t in range(1, steps + 1) if t >= 1000)
+            reset_counts()
+            start = time.perf_counter()
+            model_c, _ = run_cli(["--alg=deepq", "--env=Acrobot-v1", "--seed=0",
+                                  f"--num_timesteps={steps}", "--prioritized_replay=True",
+                                  f"--log_path={os.path.join(tmp, 'c')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_deepq_acrobot"] = c = read_counts()
+            require(c["stratified_sample"] == train_iters and c["take_rows"] == 5 * train_iters,
+                    f"the CLI's deepq run on Acrobot launched {c}, expected {train_iters} "
+                    f"samplers and {5 * train_iters} gathers")
+            replay = model_c.state.replay
+            size = replay.buffer.size
+            require(model_c.state.t == steps and size == steps
+                    and replay.priorities.shape == (51200,), "the replay ring has the wrong size")
+            prios = replay.priorities[:size]
+            require(bool(torch.isfinite(prios).all()) and bool((prios > 0).all())
+                    and int((prios != 1.0).sum()) > 0 and not replay.priorities[size:].any(),
+                    "the priorities are not finite, positive and updated")
+            batch = {k: v[:32] for k, v in replay.buffer.data.items()}
+            with torch.no_grad():
+                loss, _ = td_loss(model_c.policy, model_c.state.target, batch,
+                                  torch.ones(32, device=dev), gamma=0.99, double_q=True)
+            require(math.isfinite(float(loss)), f"the TD loss on stored transitions is {loss}")
+            print(f"main path 4c [{card}]: launches {c}; {train_iters} training iterations; "
+                  f"{steps} env steps in {elapsed:.2f} s with set-up; max priority "
+                  f"{float(replay.max_priority):.4f}; TD loss on 32 stored transitions "
+                  f"{float(loss):.4f}", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # d. the gather at this path's shapes: Pendulum's 12-byte obs rows and 4-byte
+        # action rows by the epoch's permutation, and 32 rows of the deepq rings
+        n = 1024 * 128
+        gen = torch.Generator(device=dev).manual_seed(9)
+        perm = torch.randperm(n, device=dev, generator=gen)
+        ring_idx = torch.randint(0, 50000, (32,), device=dev, generator=gen)
+        path4_shapes = []
+        for x, idx, what in ((torch.randn((n, 3), device=dev, generator=gen), perm, "Pendulum obs"),
+                             (torch.randn((n, 1), device=dev, generator=gen), perm,
+                              "Pendulum actions"),
+                             (torch.randn((50000, 6), device=dev, generator=gen), ring_idx,
+                              "Acrobot ring obs"),
+                             (torch.randn((50000, 4), device=dev, generator=gen), ring_idx,
+                              "CartPole ring obs")):
+            got = take_rows(x, idx)
+            require(torch.equal(got, x[idx]), f"take_rows on {what} f32 {tuple(x.shape)} differs "
+                    "from x[idx]")
+            t, readings = turns_ms({"kernel": lambda: take_rows(x, idx),
+                                    "plain": lambda: x[idx],
+                                    "index_select": lambda: x.index_select(0, idx)}, 50,
+                                   rounds=3)
+            bms, by = bound_ms(0, 2 * idx.numel() * x[0].numel() * 4 + idx.numel() * 8)
+            shape = f"{what}: f32 {tuple(x.shape)} by ({idx.numel()},) int64"
+            path4_shapes.append(dict(shape=shape, max_abs_err=0.0, ms=t["kernel"],
+                                     plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                                     library_ms=t["index_select"]))
+            print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, "
+                  f"plain x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} ms, "
+                  f"bound {bms:.6f} ms ({by}); in turns: "
+                  f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+        kernels["take_rows"]["path4_shapes"] = path4_shapes
+
+        # the sampler at the Acrobot ring's 51200 padded slots with deepq's 32 targets
+        n, batch = 51200, 32
+        gen = torch.Generator(device=dev).manual_seed(n + batch)
+        prios, u, got, max_slots, n_diff, sums_err = check_sampler(n, batch, gen)
+        total = torch.cumsum(ss.plain_block_sums(prios).double(), 0)[-1].float()
+        targets = ss.stratified_targets(total.view(1), u, batch)
+        t, readings = turns_ms({
+            "kernel": lambda: ss.stratified_sample(prios, u, batch),
+            "cumsum+searchsorted": lambda: torch.searchsorted(
+                torch.cumsum(prios, 0), targets, right=True),
+            "floor": lambda: floor_x.add_(1)}, 50, rounds=3)
+        plain_ms = graph_ms(lambda: ss.plain_stratified_sample(prios, u, batch), 10)
+        bms, by = bound_ms(0, 4 * n + 8 * batch)
+        print(f"stratified_sample N={n} (25 blocks) B={batch} [{card}]: integer priorities "
+              f"bit-exact (zero and random uniforms, block sums); |randn|: {n_diff} of {batch} "
+              f"indices differ from plain (max {max_slots} slots), block sums max abs err "
+              f"{sums_err:.3g}; device times: one launch {t['kernel']:.4f} ms, "
+              f"cumsum+searchsorted {t['cumsum+searchsorted']:.4f}, launch floor "
+              f"{t['floor']:.4f}, plain {plain_ms:.4f}, bound {bms:.6f} ({by}); in turns: "
+              f"{lead(readings, 'kernel', 'cumsum+searchsorted')}", flush=True)
+        kernels["stratified_sample"]["path4_shape"] = dict(
+            shape=f"N={n}, B={batch}", max_abs_err=float(max_slots), ms=t["kernel"],
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=t["cumsum+searchsorted"])
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "cartpole_shapes")
+             "cartpole_shapes", "path4_shapes", "path4_shape")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

@@ -50,7 +50,7 @@ def test_cartpole_step_matches_jax(scale):
     jobs, jst, jrew, jdone, _ = jax.jit(jax.vmap(JaxCartPole().step))(
         keys, JaxCartPoleState(*map(jnp.asarray, v)), jnp.asarray(actions))
     tobs, tst, trew, tdone, info = CartPole().step(
-        CartPoleState(*map(torch.from_numpy, v)), torch.from_numpy(actions))
+        None, CartPoleState(*map(torch.from_numpy, v)), torch.from_numpy(actions))
     assert tobs.shape == (4096, 4) and tobs.dtype == torch.float32 and info == {}
     np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), rtol=RTOL, atol=ATOL)
     for name in ("x", "x_dot", "theta", "theta_dot"):
@@ -93,7 +93,7 @@ class _Upright:
     def reset(self, draws, num_envs, device):
         return torch.zeros((num_envs, 4)), torch.zeros((num_envs,))
 
-    def step(self, state, action):
+    def step(self, draws, state, action):
         return (torch.zeros((state.shape[0], 4)), state + 1, torch.ones_like(state),
                 torch.zeros(state.shape, dtype=torch.bool), {})
 
@@ -109,7 +109,7 @@ def test_time_limit_truncates_at_200_and_500(version, limit):
     _, state = env.reset(None, 3, "cpu")
     state = TimeLimitState(state.inner,
                            torch.tensor([0, limit - 2, limit - 1], dtype=torch.int32))
-    _, state, _, done, info = env.step(state, torch.zeros(3, dtype=torch.int32))
+    _, state, _, done, info = env.step(None, state, torch.zeros(3, dtype=torch.int32))
     np.testing.assert_array_equal(done.numpy(), [False, False, True])
     np.testing.assert_array_equal(info["truncated"].numpy(), [False, False, True])
     np.testing.assert_array_equal(state.t.numpy(), [1, limit - 1, limit])
@@ -117,7 +117,7 @@ def test_time_limit_truncates_at_200_and_500(version, limit):
     cart = make_cartpole(version)
     inner = CartPoleState(*(torch.tensor([v]) for v in (2.39, 1.0, 0.0, 0.0)))
     at_limit = TimeLimitState(inner, torch.tensor([limit - 1], dtype=torch.int32))
-    _, _, _, done, info = cart.step(at_limit, torch.ones(1, dtype=torch.int32))
+    _, _, _, done, info = cart.step(None, at_limit, torch.ones(1, dtype=torch.int32))
     assert bool(done[0]) and not bool(info["truncated"][0])
 
 
@@ -167,17 +167,18 @@ def test_vec_rollout_matches_jax(version):
 
 
 def test_registry_types_and_unported_ids():
-    """CartPole-v0/-v1 are classic control and AtariSim-v0 testing, as in the JAX
-    registry; the JAX package's other ids raise NotImplementedError naming their item."""
+    """Every id has the JAX registry's env type; the port registers every device env of
+    the JAX package but PointReach-v0, which raises NotImplementedError naming item 7, as
+    host ids raise naming item 8."""
     from baselines_tpu.envs import registry as jax_registry
 
-    for env_id in ("CartPole-v0", "CartPole-v1", "AtariSim-v0", "HalfCheetah-v4",
-                   "PongNoFrameskip-v4", "FetchReach-v2", "native:CartPole-v1"):
+    for env_id in jax_registry.env_names() + ["HalfCheetah-v4", "PongNoFrameskip-v4",
+                                              "FetchReach-v2", "native:CartPole-v1"]:
         assert registry.get_env_type(env_id) == jax_registry.get_env_type(env_id), env_id
-    assert registry.is_torch_env("CartPole-v1") and not registry.is_torch_env("Pendulum-v1")
-    assert set(registry.env_names()) == {"CartPole-v0", "CartPole-v1", "AtariSim-v0"}
-    for env_id, item in (("Pendulum-v1", "item 3"), ("ImageIdentity-v0", "item 3"),
-                         ("PointReach-v0", "item 7"), ("HalfCheetah-v4", "item 8"),
+    assert registry.is_torch_env("CartPole-v1") and not registry.is_torch_env("PointReach-v0")
+    assert set(registry.env_names()) == set(jax_registry.env_names()) - {"PointReach-v0"}
+    for env_id, item in (("PointReach-v0", "item 7"), ("Pendulum-v0", "item 8"),
+                         ("HalfCheetah-v4", "item 8"),
                          ("native:CartPole-v1", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             registry.make_env(env_id)

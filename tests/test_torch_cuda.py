@@ -56,11 +56,14 @@ def test_fused_cnn_kernel_matches_plain(dev, batch):
     ((300, 21, 21, 63), torch.uint8),  # wide rows that are not a multiple of 16 bytes
     ((300,), torch.float32),  # 4-byte units
     ((300, 2), torch.float32),  # 8-byte units
+    ((300, 3), torch.float32),  # 12-byte rows (Pendulum's obs) of 4-byte units
+    ((300, 6), torch.float32),  # 24-byte rows (Acrobot's obs) of 8-byte units
     ((300,), torch.int64),  # 8-byte units
     ((300, 3), torch.int16),  # 2-byte units
     ((300, 7), torch.uint8),  # single bytes
     ((300,), torch.bool),  # single bytes
-], ids=["u8_obs", "u8_ragged", "f32", "f32x2", "i64", "i16x3", "u8x7", "bool"])
+], ids=["u8_obs", "u8_ragged", "f32", "f32x2", "f32x3", "f32x6", "i64", "i16x3", "u8x7",
+        "bool"])
 def test_take_rows_kernel_matches_x_idx(dev, shape, dtype, m):
     """Bit for bit, with duplicate indices, from 1 row to the epoch shuffle's 32768."""
     gen = torch.Generator(device=dev).manual_seed(m)
@@ -100,6 +103,7 @@ def _integer_priorities(gen, n, dev, block_total=4096):
 
 @pytest.mark.parametrize("n,batch", [
     (2 ** 20, 32), (2 ** 20, 256), (10240, 256),  # the shapes of chip_smoke.py
+    (51200, 32),  # 25 blocks: deepq's 50000-slot ring (Acrobot-v1, CartPole-v1), batch 32
     (2048, 64),  # one block
     (6144, 45),  # a batch that is not a multiple of 32, nor of the 8 targets of a block
 ])
@@ -216,8 +220,8 @@ def test_cartpole_step_on_the_card_matches_the_cpu(dev):
     v[3] *= 10
     action = torch.randint(0, 2, (4096,), generator=gen, dtype=torch.int32)
     env = CartPole()
-    cpu = env.step(CartPoleState(*v), action)
-    card = env.step(CartPoleState(*v.to(dev)), action.to(dev))
+    cpu = env.step(None, CartPoleState(*v), action)
+    card = env.step(None, CartPoleState(*v.to(dev)), action.to(dev))
     torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-6, atol=1e-7)
     assert torch.equal(card[3].cpu(), cpu[3]) and 0 < int(cpu[3].sum()) < 4096
 
@@ -260,3 +264,80 @@ def test_checkpoints_cross_between_the_card_and_the_cpu(dev, tmp_path):
     assert resumed.state.update_idx == on_card.state.update_idx == 3
     for p, q in zip(on_card.policy.module.parameters(), resumed.policy.module.parameters()):
         assert torch.equal(p, q)
+
+
+class _SameDraws:
+    """Draws made on the CPU from one seed and moved to ``device``, so the card and the
+    CPU step from the same numbers."""
+
+    def __init__(self, seed, device):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device = device
+
+    def uniform(self, shape, low, high):
+        return (torch.rand(shape, generator=self.gen) * (high - low) + low).to(self.device)
+
+    def normal(self, shape):
+        return torch.randn(shape, generator=self.gen).to(self.device)
+
+
+@pytest.mark.parametrize("env_id", ["Pendulum-v1", "Acrobot-v1"])
+def test_classic_step_on_the_card_matches_the_cpu(dev, env_id):
+    """Pendulum's and Acrobot's steps on the card against the same steps on the CPU,
+    from the same resets and actions, 20 steps of 4096 envs: obs and rewards to rtol
+    1e-5 / atol 1e-5 (the card's sin/cos may round otherwise, and Acrobot's RK4 carries
+    that on), dones equal where the CPU's height test is more than 1e-5 from its
+    threshold."""
+    from baselines_tpu_torch.envs.registry import make_env
+
+    env, n = make_env(env_id), 4096
+    cpu_obs, cpu_state = env.reset(_SameDraws(0, "cpu"), n, "cpu")
+    card_obs, card_state = env.reset(_SameDraws(0, dev), n, dev)
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(20):
+        if env_id == "Pendulum-v1":
+            action = torch.rand((n, 1), generator=gen) * 4 - 2
+        else:
+            action = torch.randint(0, 3, (n,), generator=gen, dtype=torch.int32)
+        cpu = env.step(None, cpu_state, action)
+        card = env.step(None, card_state, action.to(dev))
+        cpu_state, card_state = cpu[1], card[1]
+        torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(card[2].cpu(), cpu[2], rtol=1e-5, atol=1e-5)
+        if env_id == "Acrobot-v1":
+            s = cpu_state.inner.s.double()
+            clear = (-torch.cos(s[:, 0]) - torch.cos(s[:, 1] + s[:, 0]) - 1).abs() > 1e-5
+            assert torch.equal(card[3].cpu()[clear], cpu[3][clear])
+            assert int(clear.sum()) > n - 8
+        else:
+            assert not card[3].any()
+
+
+def test_vec_normalize_on_the_card_matches_the_cpu(dev):
+    """VecNormalize over 8 Pendulum envs with VecRewardScale(0.1), 30 steps on the card
+    and on the CPU from the same draws and actions: the normalized obs and rewards to
+    rtol 1e-4 / atol 1e-5, ob_rms and ret_rms to rtol 1e-5 (the card's mean and variance
+    sum in another order), their counts bit for bit."""
+    from baselines_tpu_torch.algos.common import build_env
+    from baselines_tpu_torch.envs.vec import find_normalize_state
+
+    n = 8
+    out = {}
+    for device in ("cpu", dev):
+        venv = build_env("Pendulum-v1", n, device=device, normalize=True, reward_scale=0.1)
+        draws = _SameDraws(3, device)
+        obs, state = venv.reset(draws)
+        gen = torch.Generator().manual_seed(4)
+        seen = []
+        for _ in range(30):
+            action = (torch.rand((n, 1), generator=gen) * 6 - 3).to(device)
+            obs, state, rew, done, _ = venv.step(draws, state, action)
+            seen.append(torch.cat([obs, rew[:, None]], dim=1).cpu())
+        out[str(device)] = (torch.stack(seen), find_normalize_state(state))
+    (cpu_seen, cpu_ns), (card_seen, card_ns) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(card_seen, cpu_seen, rtol=1e-4, atol=1e-5)
+    for name in ("ob_rms", "ret_rms"):
+        a, b = getattr(card_ns, name), getattr(cpu_ns, name)
+        torch.testing.assert_close(a.mean.cpu(), b.mean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(a.var.cpu(), b.var, rtol=1e-5, atol=1e-6)
+        assert torch.equal(a.count.cpu(), b.count)

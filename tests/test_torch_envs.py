@@ -36,7 +36,7 @@ def test_atari_sim_step_bit_exact_from_injected_state():
     for _ in range(5):
         actions = rng.randint(0, 6, (N,)).astype(np.int32)
         jobs, jstate, jrew, jdone, _ = jstep(keys, jstate, jnp.asarray(actions))
-        tobs, tstate, trew, tdone, _ = tenv.step(tstate, torch.from_numpy(actions))
+        tobs, tstate, trew, tdone, _ = tenv.step(None, tstate, torch.from_numpy(actions))
         np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
         np.testing.assert_array_equal(trew.numpy(), np.asarray(jrew))
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))

@@ -18,7 +18,18 @@ from baselines_tpu.algos.common import build_env as jax_build_env
 from baselines_tpu.algos.ppo.ppo import PPOTrainState as JaxTrainState
 from baselines_tpu.algos.ppo.ppo import make_update_fn as jax_make_update_fn
 from baselines_tpu.core.schedules import resolve_fraction_schedule as jax_schedule
+from baselines_tpu.envs.classic.acrobot import Acrobot as JaxAcrobot
 from baselines_tpu.envs.classic.cartpole import CartPole as JaxCartPole
+from baselines_tpu.envs.classic.mountain_car import MountainCar as JaxMountainCar
+from baselines_tpu.envs.classic.mountain_car import (
+    MountainCarContinuous as JaxMountainCarContinuous)
+from baselines_tpu.envs.classic.pendulum import Pendulum as JaxPendulum
+from baselines_tpu.envs.testing.atari_sim import AtariSim as JaxAtariSim
+from baselines_tpu.envs.testing.fixed_sequence import FixedSequenceEnv as JaxFixedSequence
+from baselines_tpu.envs.testing.identity import BoxIdentityEnv as JaxBoxIdentity
+from baselines_tpu.envs.testing.identity import MultiDiscreteIdentityEnv as JaxMultiDiscreteIdentity
+from baselines_tpu.envs.testing.identity import _IdentityBase as JaxIdentityBase
+from baselines_tpu.nn.distributions import make_pdtype as jax_make_pdtype
 from baselines_tpu.nn.policy import build_policy as jax_build_policy
 from baselines_tpu_torch import convert
 from baselines_tpu_torch.algos.common import ClipAdam, build_env
@@ -55,20 +66,58 @@ class ReplayDraws:
     def randint(self, low, high, shape):
         return torch.from_numpy(self._pop("randint", shape).astype(np.int32))
 
+    def normal(self, shape):
+        return torch.from_numpy(self._pop("normal", shape).astype(np.float32))
+
     def permutation(self, n):
         return torch.from_numpy(self._pop("permutation", (n,)).astype(np.int64))
 
 
-def push_reset(draws: ReplayDraws, env, key, num_envs: int) -> None:
-    """The draws of VecJaxEnv.reset(key): on CartPole (behind its TimeLimit) the four
-    uniforms of each env, which are its observation; on AtariSim its sprite positions,
-    then velocities."""
-    obs, st = jax.vmap(env.reset)(jax.random.split(key, num_envs))
-    if isinstance(env.unwrapped, JaxCartPole):
-        draws.push("uniform", obs)
+_BATCHED_RESETS = {}
+
+
+def _batched_reset(base):
+    """The JAX env's reset, vmapped over keys and compiled once for each env object."""
+    if id(base) not in _BATCHED_RESETS:
+        _BATCHED_RESETS[id(base)] = (base, jax.jit(jax.vmap(base.reset)))
+    return _BATCHED_RESETS[id(base)][1]
+
+
+def _push_draws(draws: ReplayDraws, env, keys) -> None:
+    """What the port draws where the JAX env (behind its wrappers) resets with ``keys``,
+    one per env, batched: CartPole's four uniforms of each env, which are its
+    observation; AtariSim's sprite positions, then velocities; Pendulum's angles, then
+    speeds; a MountainCar's positions; Acrobot's four state uniforms; an identity env's
+    targets (a MultiDiscrete one's uniforms); nothing for FixedSequence."""
+    base = env.unwrapped
+    if isinstance(base, JaxFixedSequence):
         return
-    draws.push("randint", st.x)
-    draws.push("randint", st.v)
+    obs, st = _batched_reset(base)(keys)
+    if isinstance(base, JaxCartPole):
+        draws.push("uniform", obs)
+    elif isinstance(base, JaxAtariSim):
+        draws.push("randint", st.x)
+        draws.push("randint", st.v)
+    elif isinstance(base, JaxPendulum):
+        draws.push("uniform", st.theta)
+        draws.push("uniform", st.theta_dot)
+    elif isinstance(base, (JaxMountainCar, JaxMountainCarContinuous)):
+        draws.push("uniform", st.position)
+    elif isinstance(base, JaxAcrobot):
+        draws.push("uniform", st.s)
+    elif isinstance(base, JaxMultiDiscreteIdentity):
+        draws.push("uniform", jax.vmap(lambda k: jax.random.uniform(k, base.dims.shape))(keys))
+    elif isinstance(base, JaxBoxIdentity):
+        draws.push("uniform", st.target)
+    elif isinstance(base, JaxIdentityBase):
+        draws.push("randint", st.target)
+    else:
+        raise TypeError(f"no draws known for {type(base).__name__}")
+
+
+def push_reset(draws: ReplayDraws, env, key, num_envs: int) -> None:
+    """The draws of VecJaxEnv.reset(key) (see ``_push_draws``)."""
+    _push_draws(draws, env, jax.random.split(key, num_envs))
 
 
 def base_env(venv):
@@ -79,17 +128,42 @@ def base_env(venv):
 
 
 def push_env_step(draws: ReplayDraws, env, key, num_envs: int) -> None:
-    """The reset draws of VecJaxEnv.step(key, ...) (envs/vec.py:161-177), which the
-    port takes at every step."""
-    _, kreset = jax.random.split(key)
+    """The draws of VecJaxEnv.step(key, ...) (envs/vec.py:159-183): the identity envs'
+    new targets from the step keys, then the reset draws, which the port takes at every
+    step."""
+    kstep, kreset = jax.random.split(key)
+    if isinstance(env.unwrapped, JaxIdentityBase):
+        _push_draws(draws, env, jax.random.split(kstep, num_envs))
     push_reset(draws, env, kreset, num_envs)
 
 
-def push_rollout_step(draws: ReplayDraws, env, key, num_envs: int, n_actions: int):
-    """One step of run_rollout (algos/common.py:228-230): the Gumbel uniforms of
-    policy.step, then the env's draws. Returns the carried key."""
+def push_policy_noise(draws: ReplayDraws, key, num_envs: int, ac_space) -> None:
+    """The noise of Policy.step's sample with ``key`` (nn/distributions.py): Gumbel
+    uniforms of a categorical (``ac_space`` may be its action count), one uniform
+    tensor for each categorical of a multi-categorical, from the key's split, or a
+    Gaussian's normals."""
+    if isinstance(ac_space, int):
+        draws.push("uniform", jax.random.uniform(key, (num_envs, ac_space), jnp.float32,
+                                                 1e-10, 1.0))
+        return
+    pdtype = jax_make_pdtype(ac_space)
+    if pdtype.kind == "categorical":
+        push_policy_noise(draws, key, num_envs, int(ac_space.n))
+    elif pdtype.kind == "multicategorical":
+        for k, n in zip(jax.random.split(key, len(pdtype.nvec)), pdtype.nvec):
+            push_policy_noise(draws, k, num_envs, int(n))
+    elif pdtype.kind == "diag_gaussian":
+        draws.push("normal", jax.random.normal(key, (num_envs,) + tuple(ac_space.shape)))
+    else:
+        draws.push("uniform", jax.random.uniform(key, (num_envs, ac_space.n)))
+
+
+def push_rollout_step(draws: ReplayDraws, env, key, num_envs: int, ac_space):
+    """One step of run_rollout (algos/common.py:228-230): the noise of policy.step
+    (``ac_space`` may be a categorical's action count), then the env's draws. Returns
+    the carried key."""
     key, kact, kstep = jax.random.split(key, 3)
-    draws.push("uniform", jax.random.uniform(kact, (num_envs, n_actions), jnp.float32, 1e-10, 1.0))
+    push_policy_noise(draws, kact, num_envs, ac_space)
     push_env_step(draws, env, kstep, num_envs)
     return key
 
@@ -153,12 +227,14 @@ class RecordStates:
     test can assert that no CartPole state came within ``THRESHOLD_MARGIN`` of a
     termination threshold: the port's and the JAX env's states differ by an ulp or so
     (torch's sin/cos against XLA's), far less than that margin, so on these inputs a
-    done flag cannot flip between the two sides unseen."""
+    done flag cannot flip between the two sides unseen. ``margin`` computes that
+    distance for another env's observations."""
 
-    def __init__(self, env):
+    def __init__(self, env, margin=None):
         self.env = env
         self.observation_space = env.observation_space
         self.action_space = env.action_space
+        self.margin = threshold_margin if margin is None else margin
         self.seen = []
 
     def reset(self, draws, num_envs, device):
@@ -166,13 +242,13 @@ class RecordStates:
         self.seen.append(obs.clone())
         return obs, state
 
-    def step(self, state, action):
-        out = self.env.step(state, action)
+    def step(self, draws, state, action):
+        out = self.env.step(draws, state, action)
         self.seen.append(out[0].clone())
         return out
 
     def min_margin(self) -> float:
-        return threshold_margin(torch.cat(self.seen))
+        return self.margin(torch.cat(self.seen))
 
 
 def threshold_margin(obs: torch.Tensor) -> float:
@@ -193,29 +269,46 @@ UPDATE_HPARAMS = dict(nsteps=NSTEPS, nminibatches=NMB, noptepochs=NEPOCHS, gamma
                       lam=0.95, ent_coef=0.01, vf_coef=0.5, nupdates=1)
 
 
-def one_ppo_update(env_id: str = "AtariSim-v0", **options) -> dict:
+def port_vec_env(venv):
+    """The VecTorchEnv under a chain of the port's vec wrappers."""
+    while not hasattr(venv, "env"):
+        venv = venv.venv
+    return venv
+
+
+def one_ppo_update(env_id: str = "AtariSim-v0", env_kwargs=None, **options) -> dict:
     """One full ppo2 update of the port and of the JAX package on the CPU, at 8 envs x
-    16 steps, 2 epochs of 2 minibatches, with ``options`` (``adv_norm``,
-    ``clip_value``) passed to both ``make_update_fn``: on AtariSim-v0 packed by VecS2D
-    with cnn_s2d in f32, or on CartPole-v1 with mlp.
+    16 steps, 2 epochs of 2 minibatches, with ``env_kwargs`` (``normalize``,
+    ``reward_scale``) passed to both ``build_env`` and ``options`` (``adv_norm``,
+    ``clip_value``) to both ``make_update_fn``: on AtariSim-v0 packed by VecS2D with
+    cnn_s2d in f32, or on another env with mlp (a Gaussian head, whose ``logstd`` starts
+    at -0.5, for a Box action space).
 
     Both start from the same weights (carried across by convert.py) and the same env
     state. The port is handed the very draws the JAX update makes, rebuilt from the same
-    key splits (algos/ppo/ppo.py:374-375, algos/common.py:228-230): the Gumbel uniforms
-    and env reset draws of every rollout step, then the epoch permutations. Returns the
+    key splits (algos/ppo/ppo.py:374-375, algos/common.py:228-230): the sampling noise
+    and env draws of every rollout step, then the epoch permutations. Returns the
     new states and metrics of both sides, the port's policy and its starting weights,
     and on CartPole the port's env, which recorded every state it stepped through."""
     atari = env_id == "AtariSim-v0"
     network, s2d = ("cnn_s2d", 4) if atari else ("mlp", 0)
-    venv = jax_build_env(env_id, NENVS, s2d=s2d)
-    n_actions = venv.action_space.n
-    jpol = jax_build_policy(venv.observation_space, venv.action_space, network)
+    env_kwargs = dict(env_kwargs or {})
+    venv = jax_build_env(env_id, NENVS, s2d=s2d, **env_kwargs)
+    ac_space = venv.action_space
+    jpol = jax_build_policy(venv.observation_space, ac_space, network)
     tx = adam_optimizer(0.5, eps=1e-5)
     # learn()'s make_state (algos/ppo/ppo.py:508-521), with the params made by numpy
     key, kreset, _ = jax.random.split(jax.random.PRNGKey(0), 3)
     obs, env_state = venv.reset(kreset)
-    params = (policy_params(0, n_actions) if atari else
-              mlp_policy_params(0, venv.observation_space.shape[0], n_actions))
+    pdtype = jax_make_pdtype(ac_space)
+    gaussian = pdtype.kind == "diag_gaussian"
+    width = pdtype.param_size // 2 if gaussian else pdtype.param_size
+    ob_space = venv.observation_space
+    ob_width = (int(np.sum(ob_space.nvec)) if hasattr(ob_space, "nvec")
+                else int(np.prod(ob_space.shape)))
+    params = policy_params(0, width) if atari else mlp_policy_params(0, ob_width, width)
+    if gaussian:
+        params["params"]["logstd"] = np.full((1, width), -0.5, np.float32)
     state = JaxTrainState(params=params, opt_state=tx.init(params), key=key,
                           env_state=env_state, obs=obs, rnn_state=None,
                           last_done=jnp.zeros((NENVS,), bool), update_idx=jnp.zeros((), jnp.int32))
@@ -229,20 +322,23 @@ def one_ppo_update(env_id: str = "AtariSim-v0", **options) -> dict:
     push_reset(draws, base, kreset, NENVS)
     k = key
     for _ in range(NSTEPS):
-        k = push_rollout_step(draws, base, k, NENVS, n_actions)
+        k = push_rollout_step(draws, base, k, NENVS, ac_space)
     push_epochs(draws, k, NEPOCHS, NENVS * NSTEPS)
 
-    tvenv = build_env(env_id, NENVS, device="cpu", s2d=s2d)
+    tvenv = build_env(env_id, NENVS, device="cpu", s2d=s2d, **env_kwargs)
     recorder = None
-    if not atari:
-        recorder = RecordStates(tvenv.venv.env)
-        tvenv.venv.env = recorder
+    if env_id.startswith("CartPole"):
+        recorder = RecordStates(port_vec_env(tvenv).env)
+        port_vec_env(tvenv).env = recorder
     tpol = build_policy(tvenv.observation_space, tvenv.action_space, network, device="cpu")
     start = convert.policy_state_dict(params)
     tpol.module.load_state_dict(start)
     opt = ClipAdam(tpol.module.parameters(), 0.5, eps=1e-5)
     tobs, tenv_state = tvenv.reset(draws)
-    np.testing.assert_array_equal(tobs.numpy(), np.asarray(obs))
+    if atari or env_id.startswith("CartPole"):
+        np.testing.assert_array_equal(tobs.numpy(), np.asarray(obs))
+    else:  # sin/cos, and the normalization's sums, round otherwise
+        np.testing.assert_allclose(tobs.numpy(), np.asarray(obs), rtol=1e-5, atol=1e-5)
     tstate = PPOTrainState(env_state=tenv_state, obs=tobs,
                            last_done=torch.zeros((NENVS,), dtype=torch.bool))
     update_fn = make_update_fn(tpol, tvenv, opt, lr_fn=resolve_fraction_schedule(3e-4),
