@@ -1,9 +1,9 @@
 """Algorithm registry (counterpart of baselines_tpu/algos/__init__.py, after
 baselines/run.py:154-167's import-by-name discovery).
 
-``ppo2``/``ppo`` and ``deepq``/``dqn`` are ported. Every other algorithm the JAX package
-knows raises ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that
-brings it; a name the JAX package does not know raises ``ValueError``.
+``ppo2``/``ppo``, ``ppo1`` and ``deepq``/``dqn`` are ported. Every other algorithm the
+JAX package knows raises ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1
+that brings it; a name the JAX package does not know raises ``ValueError``.
 """
 
 from importlib import import_module
@@ -11,11 +11,11 @@ from importlib import import_module
 _ALGOS = {
     "ppo2": "baselines_tpu_torch.algos.ppo.ppo",
     "ppo": "baselines_tpu_torch.algos.ppo.ppo",
+    "ppo1": "baselines_tpu_torch.algos.ppo1.ppo1",
     "deepq": "baselines_tpu_torch.algos.dqn.dqn",
     "dqn": "baselines_tpu_torch.algos.dqn.dqn",
 }
 _NOT_PORTED = {
-    "ppo1": "item 4 (the ppo1 adapter)",
     "a2c": "item 6",
     **{name: "item 7" for name in ("trpo_mpi", "trpo", "ddpg", "her", "acktr", "acer",
                                    "gail")},

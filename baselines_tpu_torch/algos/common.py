@@ -5,7 +5,7 @@
   [VecFrameStack] -> [VecS2D]).
 - ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
-  returns a time-major trajectory.
+  returns a time-major trajectory and, for a recurrent policy, the carry.
 - ``ClipAdam``: clip by global norm, then Adam, then ``p -= lr * u``, with the
   arithmetic of ``optax.chain(clip_by_global_norm, scale_by_adam)`` and
   ``apply_updates_lr``.
@@ -13,7 +13,7 @@
   VecNormalize statistics (the ``--save_path`` payload) and ``save_full``/``load_full``
   of the whole train state.
 - ``evaluate``: a bounded rollout of a trained model, the ``--play`` report, under the
-  statistics the model was trained with.
+  statistics the model was trained with, with the carry of a recurrent policy.
 """
 
 from __future__ import annotations
@@ -94,6 +94,25 @@ class Model:
     def device(self) -> torch.device:
         return next(self.policy.module.parameters()).device
 
+    def initial_rnn_state(self, nenv: int):
+        """The policy's zero carry for ``nenv`` envs, None for a feedforward policy."""
+        return self.policy.initial_state(nenv)
+
+    def step(self, obs: torch.Tensor, draws, rnn_state=None, done=None):
+        """The policy's ``step`` (common.py:447-457): (action, value, neglogp), and with
+        a carry ``rnn_state`` the new carry last, the carry masked where ``done`` (no
+        env masked when None)."""
+        if rnn_state is None:
+            return self.policy.step(obs, draws)
+        mask = None if done is None else done.to(torch.float32)
+        return self.policy.step(obs, draws, None, rnn_state, mask)
+
+    def value(self, obs: torch.Tensor, rnn_state=None, done=None) -> torch.Tensor:
+        if rnn_state is None:
+            return self.policy.value(obs)
+        mask = None if done is None else done.to(torch.float32)
+        return self.policy.value(obs, None, rnn_state, mask)
+
     def _normalize_state(self):
         """The NormalizeState of the training env's state, or None when the env is not
         normalized."""
@@ -140,13 +159,15 @@ class Model:
 
 
 @torch.no_grad()
-def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int):
+def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int, rnn_state=None):
     """nsteps of policy.step + venv.step (common.py:207-251).
 
-    Returns (env_state, obs, last_done, traj, last_value). The policy's kernel weights
-    are packed once here and serve every step. The actions are stored as sampled, in
-    the shape and dtype of the policy's ``PdType`` (a Gaussian sample unclipped, with the
-    ``neglogp`` of that sample); the env chain clips what it steps with."""
+    Returns (env_state, obs, last_done, traj, last_value, rnn_state). The policy's kernel
+    weights are packed once here and serve every step. The actions are stored as
+    sampled, in the shape and dtype of the policy's ``PdType`` (a Gaussian sample
+    unclipped, with the ``neglogp`` of that sample); the env chain clips what it steps
+    with. A recurrent policy carries ``rnn_state`` from step to step, masked where the
+    env was done before the step (``traj.rnn_masks``); a feedforward one leaves it None."""
     packed = policy.pack()
     n, dev = venv.num_envs, obs.device
     pdtype = policy.pdtype
@@ -161,7 +182,10 @@ def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int):
     )
     for t in range(nsteps):
         mask = last_done.to(torch.float32)
-        action, value, neglogp = policy.step(obs, draws, packed)
+        if rnn_state is None:
+            action, value, neglogp = policy.step(obs, draws, packed)
+        else:
+            action, value, neglogp, rnn_state = policy.step(obs, draws, packed, rnn_state, mask)
         nobs, env_state, rew, ndone, _ = venv.step(draws, env_state, action)
         traj.obs[t] = obs
         traj.actions[t] = action
@@ -171,18 +195,19 @@ def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int):
         traj.dones[t] = ndone
         traj.rnn_masks[t] = mask
         obs, last_done = nobs, ndone
-    last_value = policy.value(obs, packed)
-    return env_state, obs, last_done, traj, last_value
+    last_value = policy.value(obs, packed, rnn_state, last_done.to(torch.float32))
+    return env_state, obs, last_done, traj, last_value, rnn_state
 
 
 @torch.no_grad()
 def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool = True):
     """Roll the model's policy for ``nsteps`` from a reset of ``venv`` and report the
     monitor's (mean episode return, mean episode length, episodes) (common.py:523-566).
-    ``deterministic`` takes ``mode_step``'s action, else ``step``'s sample. When the
-    model trained on a normalized env and ``venv`` is normalized too, its VecNormalize
-    starts from the trained statistics, so the reset's observations are already
-    normalized by them."""
+    ``deterministic`` takes ``mode_step``'s action, else ``step``'s sample; a recurrent
+    policy starts from the zero carry and is masked where an env was done before the
+    step. When the model trained on a normalized env and ``venv`` is normalized too, its
+    VecNormalize starts from the trained statistics, so the reset's observations are
+    already normalized by them."""
     policy = model.policy
     trained = model._normalize_state()
     if trained is not None:
@@ -193,12 +218,21 @@ def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool 
                 break
             w = getattr(w, "venv", None)
     obs, env_state = venv.reset(draws)
+    recurrent = getattr(policy, "is_recurrent", False)  # deepq's QPolicy has no carry
+    rnn_state = policy.initial_state(venv.num_envs) if recurrent else None
+    done = torch.zeros((venv.num_envs,), dtype=torch.bool, device=obs.device)
     for _ in range(nsteps):
-        if deterministic:
+        if recurrent:
+            mask = done.to(torch.float32)
+            if deterministic:
+                action, _, rnn_state = policy.mode_step(obs, None, rnn_state, mask)
+            else:
+                action, _, _, rnn_state = policy.step(obs, draws, None, rnn_state, mask)
+        elif deterministic:
             action = policy.mode_step(obs)[0]
         else:
             action = policy.step(obs, draws)[0]
-        obs, env_state, _, _, _ = venv.step(draws, env_state, action)
+        obs, env_state, _, done, _ = venv.step(draws, env_state, action)
     stats = VecMonitor.get_stats(env_state)
     return float(stats.mean_return), float(stats.mean_length), int(stats.episodes)
 

@@ -7,16 +7,20 @@ with advantages normalized per minibatch (or once over the whole batch with
 ppo2/ppo2.py:21-218: noptepochs x nminibatches of shuffled minibatch steps, the
 learning rate and clip range annealed by the remaining fraction of training.
 
-Ported so far: feedforward policies on one device. Each update is a rollout, GAE, then
-the epochs; every epoch draws a fresh permutation and gathers every field of the batch
-through the row-gather kernel (``ops/gather.py``).
+Ported so far: feedforward and recurrent policies on one device, a shared latent or a
+separate value tower (``value_network="copy"``), and gradient microbatching. Each update
+is a rollout, GAE, then the epochs. A feedforward epoch draws a fresh permutation of the
+samples and gathers every field of the batch through the row-gather kernel
+(``ops/gather.py``); a recurrent epoch permutes the envs and replays whole env sequences
+from the carry before the rollout, the encoder once over all frames and the LSTM cell
+step by step, with plain indexing as the JAX package takes them (ppo.py:240-261).
 
 Checkpoints as ppo.py:544-602: ``save_interval`` writes the whole train state (params,
-Adam moments and count, env state, observations, ``update_idx`` and the generator's
-state) to ``<log dir>/checkpoints/<update:05d>``, and a run with ``save_interval`` and a
-log dir resumes from the latest of them, so that a killed run picks up where it stopped
-and draws what the uninterrupted run would have drawn. An explicit ``load_path`` loads
-params only and wins over that resume.
+Adam moments and count, env state, observations, ``update_idx``, a recurrent policy's
+carry and the generator's state) to ``<log dir>/checkpoints/<update:05d>``, and a run
+with ``save_interval`` and a log dir resumes from the latest of them, so that a killed
+run picks up where it stopped and draws what the uninterrupted run would have drawn. An
+explicit ``load_path`` loads params only and wins over that resume.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ class PPOTrainState:
     env_state: Any
     obs: torch.Tensor
     last_done: torch.Tensor
+    rnn_state: torch.Tensor | None = None  # a recurrent policy's carry, (N, 2 * nlstm)
     update_idx: int = 0
 
 
@@ -58,12 +63,22 @@ def _flat01(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_ppo_loss(policy, ent_coef: float, vf_coef: float, clip_value: bool = True):
-    """ppo.py:63-124 for a feedforward policy: ppo2's clipped value loss, or the plain
-    value MSE of ppo1 with ``clip_value=False``."""
+    """ppo.py:63-124: ppo2's clipped value loss, or the plain value MSE of ppo1 with
+    ``clip_value=False``.
 
-    def loss_fn(batch, advs, cliprange: float):
-        obs, actions, returns, old_values, old_neglogps, _ = batch
-        pdflat, vpred = policy.module(obs)
+    ``loss_fn(batch, advs, cliprange, rnn_init=None)``: the batch's fields are flat (B,
+    ...) for a feedforward policy; for a recurrent one they are time-major (T, B, ...)
+    and the policy replays the sequence from ``rnn_init``, the carry of each env before
+    the rollout, masked by the batch's masks (``PolicyValueNet.unroll``)."""
+
+    def loss_fn(batch, advs, cliprange: float, rnn_init=None):
+        obs, actions, returns, old_values, old_neglogps, masks = batch
+        if rnn_init is None:
+            pdflat, vpred, _ = policy.module(obs)
+        else:
+            pdflat, vpred, _ = policy.module.unroll(obs, rnn_init, masks)
+            actions, returns, old_values, old_neglogps, advs = (
+                _flat01(x) for x in (actions, returns, old_values, old_neglogps, advs))
         pd = policy.pdtype.pdfromflat(pdflat)
         neglogpac = pd.neglogp(actions)
         entropy = torch.mean(pd.entropy())
@@ -106,50 +121,98 @@ def _normalize_advs(returns: torch.Tensor, values: torch.Tensor) -> torch.Tensor
 
 def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepochs, gamma,
                    lam, ent_coef, vf_coef, lr_fn, cliprange_fn, nupdates,
-                   adv_norm: str = "minibatch", clip_value: bool = True):
-    """One PPO update (ppo.py:208-233, :308-330, :374-396, feedforward, one device):
-    ``update_fn(state, draws) -> (state, metrics)``. The rollout takes its draws first,
-    then each epoch one permutation. ``adv_norm="batch"`` standardizes the advantages
-    once over the whole batch and shuffles them with the other fields."""
+                   microbatch_size: int | None = None, adv_norm: str = "minibatch",
+                   clip_value: bool = True):
+    """One PPO update (ppo.py:130-396, one device): ``update_fn(state, draws) -> (state,
+    metrics)``. The rollout takes its draws first, then each epoch one permutation.
+    ``adv_norm="batch"`` standardizes the advantages once over the whole batch and
+    shuffles them with the other fields.
+
+    A feedforward policy's epoch permutes the T * N samples and gathers every field
+    through the row-gather kernel. A recurrent policy's epoch permutes the N envs and
+    takes whole env sequences, (T, N / nminibatches, ...), each minibatch replayed from
+    its envs' carry before the rollout (ppo.py:240-261), so ``nminibatches`` must
+    divide N. ``microbatch_size`` splits each feedforward minibatch, its advantages
+    already standardized, into microbatches whose gradients and metrics are averaged
+    before the one optimizer step (ppo.py:183-206)."""
     if adv_norm not in ("minibatch", "batch"):
         raise ValueError(f"adv_norm must be 'minibatch' or 'batch', got {adv_norm!r}")
-    nbatch = venv.num_envs * nsteps
+    nenvs = venv.num_envs
+    nbatch = nenvs * nsteps
     nbatch_train = nbatch // nminibatches
+    recurrent = policy.is_recurrent
+    if recurrent and nenvs % nminibatches:
+        raise ValueError(f"recurrent PPO needs nminibatches ({nminibatches}) to divide "
+                         f"num_envs ({nenvs}) (ppo2/ppo2.py:107)")
+    if recurrent and microbatch_size is not None:
+        raise NotImplementedError("microbatching a recurrent policy is not supported, as in "
+                                  "the JAX package (ppo.py:181)")
+    if microbatch_size is not None and nbatch_train % microbatch_size:
+        raise ValueError(f"microbatch_size {microbatch_size} does not divide the minibatch "
+                         f"of {nbatch_train}")
     loss_fn = make_ppo_loss(policy, ent_coef, vf_coef, clip_value)
     params = opt.params
+
+    def minibatch_grads(mb, advs, cliprange, rnn_init):
+        """The minibatch's gradients and metrics, the mean over its microbatches when
+        ``microbatch_size`` is set (ppo2/microbatched_model.py:35-75)."""
+        if microbatch_size is None:
+            loss, metrics = loss_fn(mb, advs, cliprange, rnn_init)
+            return torch.autograd.grad(loss, params), metrics
+        nmicro = nbatch_train // microbatch_size
+        grads, metrics = None, []
+        for j in range(nmicro):
+            part = slice(j * microbatch_size, (j + 1) * microbatch_size)
+            loss, m = loss_fn([x[part] for x in mb], advs[part], cliprange)
+            g = torch.autograd.grad(loss, params)
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            metrics.append({k: v.detach() for k, v in m.items()})
+        return ([g / nmicro for g in grads],
+                {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]})
 
     def update_fn(state: PPOTrainState, draws):
         frac = 1.0 - state.update_idx / nupdates
         lr = lr_fn(frac)
         cliprange = cliprange_fn(frac)
 
-        env_state, obs, last_done, traj, last_value = run_rollout(
-            policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps
-        )
+        rollout_init_rnn = state.rnn_state
+        env_state, obs, last_done, traj, last_value, rnn_state = run_rollout(
+            policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps,
+            rollout_init_rnn)
         advs, returns = gae(traj.rewards, traj.values, traj.dones, last_value, gamma, lam)
-        batch = [_flat01(x) for x in (traj.obs, traj.actions, returns, traj.values,
-                                      traj.neglogps, traj.rnn_masks)]
+        batch_t = [traj.obs, traj.actions, returns, traj.values, traj.neglogps, traj.rnn_masks]
         if adv_norm == "batch":
-            batch.append(_flat01(_normalize_advs(returns, traj.values)))
+            batch_t.append(_normalize_advs(returns, traj.values))
 
         metrics = []
-        for _ in range(noptepochs):
-            perm = draws.permutation(nbatch)
-            shuffled = [take_rows(x, perm) for x in batch]
-            for i in range(nminibatches):
-                mb = [x[i * nbatch_train:(i + 1) * nbatch_train] for x in shuffled]
-                mb_advs = mb.pop() if adv_norm == "batch" else _normalize_advs(mb[2], mb[3])
-                loss, mb_metrics = loss_fn(mb, mb_advs, cliprange)
-                grads = torch.autograd.grad(loss, params)
-                opt.step(grads, lr)
-                metrics.append({k: v.detach() for k, v in mb_metrics.items()})
+
+        def train(mb, rnn_init):
+            mb_advs = mb.pop() if adv_norm == "batch" else _normalize_advs(mb[2], mb[3])
+            grads, mb_metrics = minibatch_grads(mb, mb_advs, cliprange, rnn_init)
+            opt.step(grads, lr)
+            metrics.append({k: v.detach() for k, v in mb_metrics.items()})
+
+        if recurrent:
+            envs_per_mb = nenvs // nminibatches
+            for _ in range(noptepochs):
+                perm = draws.permutation(nenvs)
+                for i in range(nminibatches):
+                    eidx = perm[i * envs_per_mb:(i + 1) * envs_per_mb]
+                    train([x[:, eidx] for x in batch_t], rollout_init_rnn[eidx])
+        else:
+            batch = [_flat01(x) for x in batch_t]
+            for _ in range(noptepochs):
+                perm = draws.permutation(nbatch)
+                shuffled = [take_rows(x, perm) for x in batch]
+                for i in range(nminibatches):
+                    train([x[i * nbatch_train:(i + 1) * nbatch_train] for x in shuffled], None)
 
         out = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
         out["explained_variance"] = explained_variance(_flat01(traj.values), _flat01(returns))
         out["learning_rate"] = lr
         out["cliprange"] = cliprange
         new_state = PPOTrainState(env_state=env_state, obs=obs, last_done=last_done,
-                                  update_idx=state.update_idx + 1)
+                                  rnn_state=rnn_state, update_idx=state.update_idx + 1)
         return new_state, out
 
     return update_fn
@@ -196,10 +259,6 @@ def learn(
     ``env_kwargs`` go to ``build_env`` (``normalize``, ``reward_scale``,
     ``frame_stack``, ``s2d``) and the remaining keywords to the network (for example
     ``dtype=torch.bfloat16``)."""
-    if value_network not in (None, "shared"):
-        not_ported("ppo2", f"value_network={value_network!r}", "item 4")
-    if microbatch_size is not None:
-        not_ported("ppo2", "microbatch_size", "item 4 (gradient microbatching)")
     if pipeline:
         not_ported("ppo2", "pipeline", "item 8 (the host pipeline)")
     if mesh is not None:
@@ -214,17 +273,19 @@ def learn(
 
     init_gen = torch.Generator().manual_seed(seed)
     policy = build_policy(venv.observation_space, venv.action_space, network, device=device,
-                          generator=init_gen, **network_kwargs)
+                          generator=init_gen, value_network=value_network, **network_kwargs)
     opt = ClipAdam(policy.module.parameters(), max_grad_norm, eps=adam_epsilon)
     draws = Draws(seed, device)
     obs, env_state = venv.reset(draws)
     state = PPOTrainState(env_state=env_state, obs=obs,
-                          last_done=torch.zeros((venv.num_envs,), dtype=torch.bool, device=device))
+                          last_done=torch.zeros((venv.num_envs,), dtype=torch.bool, device=device),
+                          rnn_state=policy.initial_state(venv.num_envs))
     update_fn = make_update_fn(
         policy, venv, opt, nsteps=nsteps, nminibatches=nminibatches, noptepochs=noptepochs,
         gamma=gamma, lam=lam, ent_coef=ent_coef, vf_coef=vf_coef,
         lr_fn=resolve_fraction_schedule(lr), cliprange_fn=resolve_fraction_schedule(cliprange),
-        nupdates=nupdates, adv_norm=adv_norm, clip_value=clip_value,
+        nupdates=nupdates, microbatch_size=microbatch_size, adv_norm=adv_norm,
+        clip_value=clip_value,
     )
 
     model = Model(policy, state, opt, draws)

@@ -2,26 +2,35 @@
 ``state_dict``.
 
 - conv kernels HWIO -> OIHW;
-- Dense kernels (in, out) -> Linear weights (out, in);
+- Dense kernels (in, out) -> Linear weights (out, in), with a ``bias`` where the flax
+  layer has one (the LSTM's ``wx`` and ``wh`` have none);
 - LayerNorm ``scale`` -> ``weight``;
+- a raw parameter (the LSTM's ``b``, the diagonal Gaussian's ``logstd``) as it is;
 - the fc layer's input order stays NHWC on both sides, since the port's CNNs flatten in
   NHWC order;
-- the port's modules carry the flax names, so each flax leaf maps to the module of its
-  own name: ``mlp_fc{i}`` and ``LayerNorm_{i}`` of ``mlp``, ``c1``, ``c2``, ``c3``,
-  ``fc1`` of ``cnn`` and ``cnn_s2d`` (nn/networks.py:61-143), ``pi``, ``vf`` and, for a
-  ``Box`` action space, the diagonal Gaussian's ``logstd`` parameter of the policy
-  (nn/policy.py:73-88), and the QNet streams of deepq (algos/dqn/dqn.py:54-81). The
-  ``pi`` layer's width is the distribution's: the action count, the sum of a
-  MultiDiscrete's counts, or the Gaussian's dimension.
+- the port's modules carry the flax names, nested as flax nests them, so each flax
+  module maps to the module of its own dotted path: ``network.mlp_fc0``,
+  ``network._ImpalaResBlock_3.Conv_1``, ``network.encoder.c1``, ``network.lstm.wx``,
+  ``value_network.mlp_fc0`` (a policy built with ``value_network="copy"``), ``pi``,
+  ``vf``, and the QNet streams of deepq (algos/dqn/dqn.py:54-81). The ``pi`` layer's
+  width is the distribution's: the action count, the sum of a MultiDiscrete's counts,
+  or the Gaussian's dimension.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 
-def _layer(prefix: str, leaf: dict) -> dict:
+def _tensor(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def _layer(prefix: str, leaf: Mapping) -> dict:
+    """A Dense or Conv layer's ``kernel`` and optional ``bias``."""
     kernel = np.asarray(leaf["kernel"])
     if kernel.ndim == 4:  # conv, HWIO
         weight = kernel.transpose(3, 2, 0, 1)
@@ -29,52 +38,39 @@ def _layer(prefix: str, leaf: dict) -> dict:
         weight = kernel.T
     else:
         raise ValueError(f"{prefix}: unexpected kernel shape {kernel.shape}")
-    return {
-        f"{prefix}weight": torch.tensor(np.asarray(weight, np.float32)),
-        f"{prefix}bias": torch.tensor(np.asarray(leaf["bias"], np.float32)),
-    }
+    out = {f"{prefix}weight": _tensor(weight)}
+    if "bias" in leaf:
+        out[f"{prefix}bias"] = _tensor(leaf["bias"])
+    return out
 
 
-def _module(prefix: str, leaf: dict) -> dict:
-    """One flax module's leaves: a LayerNorm's (``scale``) or a Dense or Conv layer's."""
-    if "scale" in leaf:
-        return {f"{prefix}weight": torch.tensor(np.asarray(leaf["scale"], np.float32)),
-                f"{prefix}bias": torch.tensor(np.asarray(leaf["bias"], np.float32))}
-    return _layer(prefix, leaf)
-
-
-def network_state_dict(params: dict) -> dict:
-    """A network's flax params (``mlp``: {'mlp_fc0': ..., 'LayerNorm_0': ...}; ``cnn``
-    and ``cnn_s2d``: {'c1': ..., 'fc1': ...}; with or without the outer 'params') -> its
-    state_dict, each flax module mapped to the port's module of the same name."""
-    params = params.get("params", params)
+def _tree(prefix: str, params: Mapping) -> dict:
+    """Each flax module of ``params`` under its dotted path: a Dense or Conv layer
+    (``kernel``), a LayerNorm (``scale``), a raw parameter, or a module of modules."""
     out = {}
     for name, leaf in params.items():
-        out.update(_module(f"{name}.", leaf))
+        path = f"{prefix}{name}"
+        if not isinstance(leaf, Mapping):
+            out[path] = _tensor(leaf)
+        elif "kernel" in leaf:
+            out.update(_layer(f"{path}.", leaf))
+        elif "scale" in leaf:
+            out[f"{path}.weight"] = _tensor(leaf["scale"])
+            out[f"{path}.bias"] = _tensor(leaf["bias"])
+        else:
+            out.update(_tree(f"{path}.", leaf))
     return out
 
 
-def policy_state_dict(params: dict) -> dict:
-    """A PolicyValueNet's flax params ({'network': ..., 'pi': ..., 'vf': ...} and
-    'logstd' for a Gaussian head, with or without the outer 'params') -> the port's
-    PolicyValueNet state_dict."""
-    params = params.get("params", params)
-    out = {f"network.{k}": v for k, v in network_state_dict(params["network"]).items()}
-    out.update(_layer("pi.", params["pi"]))
-    if "logstd" in params:
-        out["logstd"] = torch.tensor(np.asarray(params["logstd"], np.float32))
-    out.update(_layer("vf.", params["vf"]))
-    return out
+def network_state_dict(params: Mapping) -> dict:
+    """Flax params, with or without the outer 'params', -> the state_dict of the port's
+    module of the same tree: a network's ({'mlp_fc0': ..., 'LayerNorm_0': ...}; {'c1':
+    ..., 'fc1': ...}; {'encoder': {...}, 'lstm': {'wx': ..., 'b': ...}}), a
+    PolicyValueNet's ({'network': ..., 'pi': ..., 'vf': ...}, with 'value_network' for
+    a separate value tower and 'logstd' for a Gaussian head) or a QNet's ({'network':
+    ..., 'action_value_fc0': ..., ...})."""
+    return _tree("", params.get("params", params))
 
 
-def q_state_dict(params: dict) -> dict:
-    """A QNet's flax params ({'network': ..., 'action_value_fc0': ..., ...}, with or
-    without the outer 'params') -> the port's QNet state_dict: the network as
-    ``network_state_dict`` takes it, each stream's Dense layers as Linear layers, and
-    each LayerNorm's ``scale`` as its ``weight``."""
-    params = params.get("params", params)
-    out = {f"network.{k}": v for k, v in network_state_dict(params["network"]).items()}
-    for name, leaf in params.items():
-        if name != "network":
-            out.update(_module(f"{name}.", leaf))
-    return out
+# the same mapping, under the names of the module each tree belongs to
+policy_state_dict = q_state_dict = network_state_dict

@@ -7,7 +7,8 @@ turned into that tree on save:
 - a dataclass becomes a dict of its fields by name;
 - an object with ``state_dict()`` (an ``nn.Module``, ``ClipAdam``, ``Draws``) becomes
   that dict;
-- a list or tuple becomes a list.
+- a list or tuple becomes a list;
+- None (the carry of a feedforward policy) stays None.
 
 ``load_state(path, target)`` rebuilds the tree into a template of the same structure (a
 freshly built train state): dataclasses are made anew, objects with
@@ -33,7 +34,7 @@ def to_tree(obj):
     """``obj`` as a nested dict of tensors and plain numbers (see the module's doc)."""
     if isinstance(obj, torch.Tensor):
         return obj.detach()
-    if isinstance(obj, _LEAVES):
+    if obj is None or isinstance(obj, _LEAVES):
         return obj
     if hasattr(obj, "state_dict"):
         return to_tree(obj.state_dict())
@@ -56,6 +57,10 @@ def from_tree(tree, target, where: str = "state"):
             raise ValueError(f"checkpoint {where}: {got}, expected {target.dtype} "
                              f"{tuple(target.shape)}")
         return tree.to(target.device)
+    if target is None:
+        if tree is not None:
+            raise ValueError(f"checkpoint {where}: a {type(tree).__name__}, expected None")
+        return None
     if isinstance(target, _LEAVES):
         return tree
     if hasattr(target, "load_state_dict"):

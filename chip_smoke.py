@@ -48,6 +48,27 @@ Phases, each printing its seconds:
         and (131072, 1) actions by a permutation; 32 rows of Acrobot's (50000, 6) and
         CartPole's (50000, 4) f32 rings) and the sampler at 51200 slots (25 blocks) with
         32 targets, timed in turns against index_select and cumsum + searchsorted.
+  10. main path 5, the remaining networks and PPO variants:
+     a. ppo2 with impala_cnn in bf16 on AtariSim-v0's unpacked 84x84x4 frames at path 1's
+        width (256 envs x 128 steps, 4 epochs x 4 minibatches of 8192), 2 updates: finite
+        losses, 48 gather launches; then the gather on those 28,224-byte obs rows by a
+        32768-row permutation, bit for bit, timed in turns against index_select;
+     b. ppo2 with cnn_lstm (128 cells, f32) at the same width, 4 minibatches of 64 whole
+        envs, 2 updates: first the first update's rollout, rebuilt from the same seed,
+        and a second from its carry with half the envs done before the first step, each
+        replayed as the loss replays it (neglogps, values and carry to 1e-4 relative);
+        then learn: finite losses, a nonzero carry;
+     c. ppo2 with lstm (32 cells) on FixedSequenceEnv(10, episode_len=5), 8 envs x 10
+        steps, 50000 steps: a deterministic return over 3.5 of 5;
+     d. through run.main on CartPole-v1: (i) ppo1 --value_network=copy at its
+        classic-control defaults, 4 updates, save, play and the --load_path round trip
+        bit for bit; (ii) ppo2 with mlp at 1024 x 128 and --microbatch_size=8192, 2
+        updates, its params within 1e-5 of the same run without microbatches;
+     e. deepq at its Atari defaults (conv_only, prioritized, dueling) through run.main on
+        AtariSim-v0 with --env_type=atari, learning_starts 1000, 1280 steps: one sampler
+        and 5 gather launches in each of its 71 training iterations, finite priorities;
+        then the gather on 32 rows of a (10000, 84, 84, 4) u8 ring and the sampler at
+        10240 slots with 32 targets, checked and timed in turns as in phases 4 and 5.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits nonzero. It exits nonzero before building anything
@@ -147,6 +168,11 @@ def lead(readings: dict, a: str, b: str) -> str:
             f"{len(readings[a])} turns")
 
 
+def rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference over the largest magnitude of want."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -193,8 +219,13 @@ def main() -> int:
         from baselines_tpu_torch.algos.dqn.defaults import atari as dqn_atari_defaults
         from baselines_tpu_torch import run as cli
         from baselines_tpu_torch.algos.dqn.dqn import td_loss
+        from baselines_tpu_torch.algos.common import build_env, evaluate, run_rollout
         from baselines_tpu_torch.algos.ppo.ppo import learn
         from baselines_tpu_torch.core import logger
+        from baselines_tpu_torch.core.rng import Draws
+        from baselines_tpu_torch.envs.testing.fixed_sequence import FixedSequenceEnv
+        from baselines_tpu_torch.envs.vec import VecMonitor, VecTorchEnv
+        from baselines_tpu_torch.nn.policy import build_policy
         from baselines_tpu_torch.nn.networks import NatureCNNS2D
         from baselines_tpu_torch.ops import cuda_lib
         from baselines_tpu_torch.ops import stratified_sample as ss
@@ -524,7 +555,8 @@ def main() -> int:
         print(f"logged keys [{card}]: {sorted(recorder.rows[-1])}", flush=True)
 
     with Phase("main path 2: deepq learn, 16384 steps of 64 envs"):
-        # dqn/defaults.py:4-18 (Atari), with cnn_s2d in bf16 for conv_only (not ported),
+        # dqn/defaults.py:4-18 (Atari), with cnn_s2d in bf16 in place of conv_only, so
+        # that the act step runs the fused CNN kernel (phase 10 runs conv_only), with
         # 64 envs and batch 256 as scripts/profile_dqn.py:49,85 runs deepq, and
         # learning_starts cut from 10000 to 4096 so that 193 of the 256 iterations train
         hparams = dict(dqn_atari_defaults(), env_id="AtariSim-v0", network="cnn_s2d",
@@ -857,12 +889,294 @@ def main() -> int:
             shape=f"N={n}, B={batch}", max_abs_err=float(max_slots), ms=t["kernel"],
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=t["cumsum+searchsorted"])
 
+    with Phase("main path 5: impala_cnn, the recurrent ppo2, ppo1, microbatching and deepq "
+               "on conv_only"):
+        # a. ppo2 with impala_cnn in bf16 on the unpacked 84x84x4 frames, at bench.py's
+        # primary width: 256 envs x 128 steps, 4 epochs x 4 minibatches of 8192, 2 updates
+        recorder = RecordingOutput()
+        logger.Logger.CURRENT = logger.Logger(
+            dir=None, output_formats=[logger.HumanOutputFormat(sys.stdout), recorder])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start = time.perf_counter()
+        model = learn(env_id="AtariSim-v0", network="impala_cnn", dtype=torch.bfloat16,
+                      num_envs=256, nsteps=128, nminibatches=4, noptepochs=4,
+                      total_timesteps=2 * 32768, seed=0, log_interval=1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts["impala_ppo2"] = c = read_counts()
+        require(c == {"fused_cnn": 0, "take_rows": 48, "stratified_sample": 0},
+                f"ppo2 on impala_cnn launched {c}, expected 48 gathers (6 fields x 4 epochs x "
+                "2 updates) and nothing else")
+        require(len(recorder.rows) == 2, f"expected 2 logged rows, got {len(recorder.rows)}")
+        for row in recorder.rows:
+            for key, val in row.items():
+                if key.startswith("loss/"):
+                    require(math.isfinite(val), f"impala_cnn: logged {key} = {val} is not finite")
+        ent = recorder.rows[0]["loss/policy_entropy"]
+        require(abs(ent - math.log(6)) < 0.05, f"impala_cnn: initial policy entropy {ent}")
+        require(model.policy.module.network.Dense_0.in_features == 3872,
+                "impala_cnn's dense layer does not read 11 x 11 x 32")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path 5a [{card}]: ppo2 impala_cnn bf16, launches {c}; {elapsed:.2f} s for "
+              f"65536 env steps = {65536 / elapsed:.0f} env-steps/s (first update included); "
+              f"logged fps {[r['fps'] for r in recorder.rows]}; losses "
+              f"{[round(r['loss/policy_loss'], 6) for r in recorder.rows]}; peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        del model
+        # the gather at this path's shape: u8 obs rows of 84 x 84 x 4 = 28,224 bytes by
+        # an epoch's permutation of the 32768 samples
+        n = 32768
+        gen = torch.Generator(device=dev).manual_seed(10)
+        obs = torch.randint(0, 256, (n, 84, 84, 4), dtype=torch.uint8, device=dev, generator=gen)
+        perm = torch.randperm(n, device=dev, generator=gen)
+        require(torch.equal(take_rows(obs, perm), obs[perm]),
+                "take_rows on the unpacked obs differs from x[idx]")
+        t, readings = turns_ms({"kernel": lambda: take_rows(obs, perm),
+                                "plain": lambda: obs[perm],
+                                "index_select": lambda: obs.index_select(0, perm)}, 5, reps=4,
+                               rounds=3)
+        bms, by = bound_ms(0, 2 * obs.numel() + perm.numel() * 8)
+        shape = f"impala obs: u8 {tuple(obs.shape)} by ({n},) int64"
+        kernels["take_rows"]["path5_shapes"] = [dict(
+            shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+            bound_by=by, library_ms=t["index_select"])]
+        print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms "
+              f"({bms / t['kernel']:.1%} of the bound), plain x[idx] {t['plain']:.4f} ms, "
+              f"index_select {t['index_select']:.4f} ms, bound {bms:.4f} ms ({by}); in turns: "
+              f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+        del obs, perm
+
+        # b. ppo2 with cnn_lstm (the Nature CNN into 128 LSTM cells) in f32 at the same
+        # width, 4 minibatches of 64 whole envs. First the first update's rollout, rebuilt
+        # as learn builds it from the same seed, replayed as the loss replays it from the
+        # carry before the rollout: the rollout's neglogps and values to 1e-4 relative;
+        # then a second rollout from that carry with half the envs done before its first
+        # step, whose masks zero a nonzero carry, replayed the same way
+        torch.cuda.reset_peak_memory_stats()
+        venv = build_env("AtariSim-v0", 256, device=dev)
+        policy = build_policy(venv.observation_space, venv.action_space, "cnn_lstm",
+                              device=dev, generator=torch.Generator().manual_seed(0), nlstm=128)
+        draws = Draws(0, dev)
+        obs, env_state = venv.reset(draws)
+        done = torch.zeros((256,), dtype=torch.bool, device=dev)
+        carry = policy.initial_state(256)
+        replay_errs = []
+        for rollout in range(2):
+            init = carry
+            env_state, obs, done, traj, _, carry = run_rollout(
+                policy, venv, draws, env_state, obs, done, 128, init)
+            with torch.no_grad():
+                pdflat, vf, replayed = policy.module.unroll(traj.obs, init, traj.rnn_masks)
+            neglogp = policy.pdtype.pdfromflat(pdflat).neglogp(traj.actions.reshape(-1))
+            errs = (rel(neglogp, traj.neglogps.reshape(-1)), rel(vf, traj.values.reshape(-1)),
+                    rel(replayed, carry))
+            require(max(errs) < 1e-4, f"cnn_lstm: the replay of rollout {rollout} differs from "
+                    f"it by {errs} (neglogps, values, carry)")
+            require(float(carry.abs().max()) > 0, "cnn_lstm: the carry after the rollout is zero")
+            replay_errs.append(errs)
+            done = torch.arange(256, device=dev) % 2 == 0
+        require(int(traj.rnn_masks[0].sum()) == 128 and float(init.abs().max()) > 0,
+                "cnn_lstm: the second rollout did not mask a nonzero carry")
+        del venv, policy, traj, pdflat, vf, neglogp
+        recorder = RecordingOutput()
+        logger.Logger.CURRENT = logger.Logger(
+            dir=None, output_formats=[logger.HumanOutputFormat(sys.stdout), recorder])
+        reset_counts()
+        start = time.perf_counter()
+        model = learn(env_id="AtariSim-v0", network="cnn_lstm", nlstm=128, num_envs=256,
+                      nsteps=128, nminibatches=4, noptepochs=4, total_timesteps=2 * 32768,
+                      seed=0, log_interval=1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts["cnn_lstm_ppo2"] = c = read_counts()
+        require(len(recorder.rows) == 2, f"expected 2 logged rows, got {len(recorder.rows)}")
+        for row in recorder.rows:
+            for key, val in row.items():
+                if key.startswith("loss/"):
+                    require(math.isfinite(val), f"cnn_lstm: logged {key} = {val} is not finite")
+        carry = model.state.rnn_state
+        require(carry.shape == (256, 256) and float(carry.abs().max()) > 0,
+                "cnn_lstm: the carry after training is zero or misshapen")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path 5b [{card}]: ppo2 cnn_lstm f32, launches {c}; replay of the first "
+              f"and second rollouts (neglogps, values, carry) rel err {replay_errs}; "
+              f"{elapsed:.2f} s for 65536 env steps = {65536 / elapsed:.0f} env-steps/s (first "
+              f"update included); logged fps {[r['fps'] for r in recorder.rows]}; carry max "
+              f"{float(carry.abs().max()):.4f}; peak device memory {peak / 2**30:.2f} GiB",
+              flush=True)
+        del model, carry
+
+        # c. ppo2 with lstm on FixedSequenceEnv(10, episode_len=5), which only memory
+        # solves (tests/test_ppo_learning.py:78-102's run)
+        def fixed_sequence():
+            return VecMonitor(VecTorchEnv(FixedSequenceEnv(10, episode_len=5), 8, dev))
+
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[RecordingOutput()])
+        reset_counts()
+        start = time.perf_counter()
+        model = learn(env=fixed_sequence(), network="lstm", nlstm=32, total_timesteps=50_000,
+                      seed=0, nsteps=10, nminibatches=1, noptepochs=4, lr=1e-3, ent_coef=0.0,
+                      log_interval=1000)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts["lstm_fixed_sequence"] = c = read_counts()
+        ret, length, episodes = evaluate(model, fixed_sequence(), Draws(1, dev), nsteps=100,
+                                         deterministic=True)
+        # the bar of the JAX package's test; a policy without memory sees one constant
+        # observation, so it plays one action and scores at most that action's count in
+        # the sequence, 2 of 5 for this env's (5, 0, 3, 3, 7)
+        require(ret > 3.5, f"lstm on FixedSequence: mean return {ret}, want > 3.5 of 5")
+        print(f"main path 5c [{card}]: ppo2 lstm on FixedSequence, 50000 steps in "
+              f"{elapsed:.2f} s = {50000 / elapsed:.0f} env-steps/s, launches {c}; "
+              f"deterministic return {ret} of 5 (len {length}, {episodes} episodes)", flush=True)
+        del model
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_variants_")
+        try:
+            # d (i). ppo1 with a separate value tower at its classic-control defaults (8
+            # envs, 512 steps an update, 4 epochs of minibatches of 128), 4 updates, save
+            # and play, then the --load_path round trip
+            model_path = os.path.join(tmp, "ppo1.pt")
+            argv = ["--alg=ppo1", "--env=CartPole-v1", "--seed=0", "--value_network=copy",
+                    "--play"]
+            reset_counts()
+            start = time.perf_counter()
+            model_a, out_a = run_cli(argv + [f"--num_timesteps={4 * 512}",
+                                             f"--save_path={model_path}",
+                                             f"--log_path={os.path.join(tmp, 'a')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_ppo1"] = c = read_counts()
+            require(c["take_rows"] == 7 * 4 * 4, f"ppo1 launched {c}, expected 112 gathers (6 "
+                    "fields and the batch's advantages x 4 epochs x 4 updates)")
+            with open(os.path.join(tmp, "a", "progress.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            for row in rows:
+                for key, val in row.items():
+                    if key.startswith("loss/"):
+                        require(math.isfinite(float(val)), f"ppo1: logged {key} = {val}")
+            require(model_a.state.update_idx == 4 and model_a.opt.max_grad_norm is None,
+                    f"ppo1 ran {model_a.state.update_idx} updates, expected 4 without gradient "
+                    "clipping")
+            report_a = play_report(out_a)
+            model_b, out_b = run_cli(argv + ["--num_timesteps=0", f"--load_path={model_path}",
+                                             f"--log_path={os.path.join(tmp, 'b')}"])
+            saved, loaded = model_a.policy.module.state_dict(), model_b.policy.module.state_dict()
+            require(saved.keys() == loaded.keys() and "value_network.mlp_fc0.weight" in saved
+                    and all(torch.equal(saved[k], loaded[k]) for k in saved),
+                    "ppo1: the loaded params differ from the saved ones")
+            require(play_report(out_b) == report_a, "ppo1: play after load differs")
+            print(f"main path 5d(i) [{card}]: ppo1 --value_network=copy, launches {c}; "
+                  f"4 updates, run.main with save and play {elapsed:.2f} s; eprewmean at the "
+                  f"first {[float(r['eprewmean']) for r in rows]}; {len(saved)} param tensors (the "
+                  f"value tower's included) loaded bit for bit; {report_a}, the same after "
+                  "load", flush=True)
+
+            # d (ii). ppo2 with mlp at 1024 envs x 128 steps, each 32768-sample minibatch
+            # as 4 microbatches of 8192, 2 updates, against the same run without them
+            argv = ["--alg=ppo2", "--env=CartPole-v1", "--network=mlp", "--seed=0",
+                    "--num_env=1024", "--nsteps=128", "--nminibatches=4", "--noptepochs=4",
+                    f"--num_timesteps={2 * 1024 * 128}"]
+            reset_counts()
+            start = time.perf_counter()
+            micro, _ = run_cli(argv + ["--microbatch_size=8192",
+                                       f"--log_path={os.path.join(tmp, 'micro')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_ppo2_microbatch"] = c = read_counts()
+            whole, _ = run_cli(argv + [f"--log_path={os.path.join(tmp, 'whole')}"])
+            require(c["take_rows"] == 48, f"microbatched ppo2 launched {c}, expected 48 gathers")
+            diff = max(float((p - q).abs().max()) for p, q in zip(
+                micro.policy.module.parameters(), whole.policy.module.parameters()))
+            require(diff < 1e-5, f"microbatched ppo2's params differ from the whole "
+                    f"minibatch's by {diff}")
+            print(f"main path 5d(ii) [{card}]: ppo2 --microbatch_size=8192, launches {c}; "
+                  f"run.main {elapsed:.2f} s; params within {diff:.3g} of the run without "
+                  "microbatches", flush=True)
+            del micro, whole
+
+            # e. deepq at its Atari defaults (conv_only, prioritized, dueling; buffer 10000
+            # padded to 10240 slots, batch 32, one env), learning_starts cut from 10000 to
+            # 1000 and the run to 1280 steps, so that 71 iterations train
+            steps, starts = 1280, 1000
+            train_iters = sum(1 for t in range(1, steps + 1) if t >= starts and t % 4 == 0)
+            reset_counts()
+            start = time.perf_counter()
+            model_e, _ = run_cli(["--alg=deepq", "--env=AtariSim-v0", "--env_type=atari",
+                                  "--seed=0", f"--num_timesteps={steps}",
+                                  f"--learning_starts={starts}",
+                                  f"--log_path={os.path.join(tmp, 'e')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_deepq_atari"] = c = read_counts()
+            require(train_iters >= 32 and c["stratified_sample"] == train_iters
+                    and c["take_rows"] == 5 * train_iters and c["fused_cnn"] == 0,
+                    f"deepq on conv_only launched {c}, expected {train_iters} samplers and "
+                    f"{5 * train_iters} gathers")
+            qnet = model_e.policy.module
+            require(type(qnet.network).__name__ == "ConvOnly" and qnet.dueling,
+                    "deepq's Atari defaults did not build a dueling QNet on conv_only")
+            replay = model_e.state.replay
+            prios = replay.priorities[:replay.buffer.size]
+            require(replay.priorities.shape == (10240,) and bool(torch.isfinite(prios).all())
+                    and bool((prios > 0).all()) and int((prios != 1.0).sum()) > 0,
+                    "deepq on conv_only: the priorities are not finite, positive and updated")
+            print(f"main path 5e [{card}]: deepq at the Atari defaults on conv_only, launches "
+                  f"{c}; {train_iters} training iterations; {steps} env steps in {elapsed:.2f} s "
+                  f"with set-up; max priority {float(replay.max_priority):.4f}", flush=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # the kernels at path e's shapes: the gather of 32 rows of the 10000-slot ring of
+        # 84x84x4 frames, and the sampler over its 10240 padded slots with 32 targets
+        gen = torch.Generator(device=dev).manual_seed(11)
+        ring = torch.randint(0, 256, (10000, 84, 84, 4), dtype=torch.uint8, device=dev,
+                             generator=gen)
+        ridx = torch.randint(0, 10000, (32,), device=dev, generator=gen)
+        require(torch.equal(take_rows(ring, ridx), ring[ridx]),
+                "take_rows on the conv_only replay ring differs from x[idx]")
+        t, readings = turns_ms({"kernel": lambda: take_rows(ring, ridx),
+                                "plain": lambda: ring[ridx],
+                                "index_select": lambda: ring.index_select(0, ridx)}, 50,
+                               rounds=3)
+        bms, by = bound_ms(0, 2 * 32 * ring[0].numel() + 32 * 8)
+        shape = f"conv_only replay ring: u8 {tuple(ring.shape)} by (32,) int64"
+        kernels["take_rows"]["path5_shapes"].append(dict(
+            shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+            bound_by=by, library_ms=t["index_select"]))
+        print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, plain "
+              f"x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}); in turns: {lead(readings, 'kernel', 'index_select')} "
+              f"[{card}]", flush=True)
+        del ring
+        n, batch = 10240, 32
+        gen = torch.Generator(device=dev).manual_seed(n + batch)
+        prios, u, got, max_slots, n_diff, sums_err = check_sampler(n, batch, gen)
+        total = torch.cumsum(ss.plain_block_sums(prios).double(), 0)[-1].float()
+        targets = ss.stratified_targets(total.view(1), u, batch)
+        t, readings = turns_ms({
+            "kernel": lambda: ss.stratified_sample(prios, u, batch),
+            "cumsum+searchsorted": lambda: torch.searchsorted(
+                torch.cumsum(prios, 0), targets, right=True),
+            "floor": lambda: floor_x.add_(1)}, 50, rounds=3)
+        plain_ms = graph_ms(lambda: ss.plain_stratified_sample(prios, u, batch), 10)
+        bms, by = bound_ms(0, 4 * n + 8 * batch)
+        print(f"stratified_sample N={n} B={batch} [{card}]: integer priorities bit-exact (zero "
+              f"and random uniforms, block sums); |randn|: {n_diff} of {batch} indices differ "
+              f"from plain (max {max_slots} slots), block sums max abs err {sums_err:.3g}; "
+              f"device times: one launch {t['kernel']:.4f} ms, cumsum+searchsorted "
+              f"{t['cumsum+searchsorted']:.4f}, launch floor {t['floor']:.4f}, plain "
+              f"{plain_ms:.4f}, bound {bms:.6f} ({by}); in turns: "
+              f"{lead(readings, 'kernel', 'cumsum+searchsorted')}", flush=True)
+        kernels["stratified_sample"]["path5_shape"] = dict(
+            shape=f"N={n}, B={batch}", max_abs_err=float(max_slots), ms=t["kernel"],
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=t["cumsum+searchsorted"])
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "cartpole_shapes", "path4_shapes", "path4_shape")
+             "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

@@ -252,17 +252,19 @@ def test_run_without_device_needs_a_card(tmp_path):
 
 
 def test_algorithm_registry():
-    """ppo2/ppo and deepq/dqn resolve to the port's learners; every other algorithm the
-    JAX package knows raises NotImplementedError naming its item; an unknown name raises
-    ValueError, as the JAX registry does."""
+    """ppo2/ppo, ppo1 and deepq/dqn resolve to the port's learners; every other algorithm
+    the JAX package knows raises NotImplementedError naming its item; an unknown name
+    raises ValueError, as the JAX registry does."""
     from baselines_tpu import algos as jax_algos
+    from baselines_tpu_torch.algos.ppo1 import ppo1
 
     assert algos.get_learn_function("ppo2") is algos.get_learn_function("ppo") is ppo.learn
+    assert algos.get_learn_function("ppo1") is ppo1.learn
     assert algos.get_learn_function("deepq") is algos.get_learn_function("dqn") is dqn.learn
     assert algos.get_defaults("ppo2", "classic_control")["nsteps"] == 128
+    assert algos.get_defaults("ppo1", "mujoco")["value_network"] == "copy"
     assert algos.get_defaults("deepq", "classic_control") == {"gamma": 0.99, "train_freq": 1}
-    for alg, item in (("a2c", "item 6"), ("trpo_mpi", "item 7"), ("acer", "item 7"),
-                      ("ppo1", "item 4")):
+    for alg, item in (("a2c", "item 6"), ("trpo_mpi", "item 7"), ("acer", "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             algos.get_learn_function(alg)
     for alg in jax_algos.algo_names():
@@ -273,9 +275,10 @@ def test_algorithm_registry():
         algos.get_learn_function("sac")
     with pytest.raises(NotImplementedError, match="item 7"):
         run.main(["--alg=ddpg", "--env=CartPole-v1", "--device=cpu", "--num_timesteps=0"])
-    for env_type in ("atari", "mujoco", "classic_control", "robotics", "testing"):
-        want = jax_algos.get_defaults("ppo2", env_type)
-        got = algos.get_defaults("ppo2", env_type)
-        assert set(got) == set(want), env_type
-        for k, v in want.items():
-            assert (got[k](0.5) == v(0.5)) if callable(v) else got[k] == v, (env_type, k)
+    for alg in ("ppo2", "ppo1"):
+        for env_type in ("atari", "mujoco", "classic_control", "robotics", "testing"):
+            want = jax_algos.get_defaults(alg, env_type)
+            got = algos.get_defaults(alg, env_type)
+            assert set(got) == set(want), (alg, env_type)
+            for k, v in want.items():
+                assert (got[k](0.5) == v(0.5)) if callable(v) else got[k] == v, (alg, env_type, k)

@@ -341,3 +341,46 @@ def test_vec_normalize_on_the_card_matches_the_cpu(dev):
         torch.testing.assert_close(a.mean.cpu(), b.mean, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(a.var.cpu(), b.var, rtol=1e-5, atol=1e-6)
         assert torch.equal(a.count.cpu(), b.count)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("cnn_small", (84, 84, 4)), ("impala_cnn", (84, 84, 4)), ("conv_only", (84, 84, 4)),
+    ("lnlstm", (6,)), ("cnn_lstm", (84, 84, 4)), ("impala_cnn_lstm", (84, 84, 4)),
+])
+def test_network_on_the_card_matches_the_cpu(dev, name, shape):
+    """The fifth slice's networks in f32 (TF32 off) on the card against the CPU on the
+    same weights and inputs, to 1e-4 relative (cuDNN picks its own convolution
+    algorithms); a recurrent one over 6 steps with resets, and its ``unroll`` on the
+    card against its steps there."""
+    from baselines_tpu_torch.nn.networks import get_network
+
+    gen = torch.Generator().manual_seed(5)
+    cpu = get_network(name, ob_shape=shape, generator=gen)
+    card = get_network(name, ob_shape=shape).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    nsteps, nb = 6, 4
+    if len(shape) == 3:
+        xs = torch.randint(0, 256, (nsteps, nb) + shape, dtype=torch.uint8, generator=gen)
+    else:
+        xs = torch.randn((nsteps, nb) + shape, generator=gen)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    with torch.no_grad():
+        if not cpu.is_recurrent:
+            assert rel(card(xs[0].to(dev)), cpu(xs[0])) < 1e-4
+            return
+        masks = (torch.rand((nsteps, nb), generator=gen) < 0.3).float()
+        c0 = 0.5 * torch.randn((nb, 2 * cpu.nlstm), generator=gen)
+        c_cpu, c_card = c0, c0.to(dev)
+        steps = []
+        for t in range(nsteps):
+            h_cpu, c_cpu = cpu(xs[t], c_cpu, masks[t])
+            h_card, c_card = card(xs[t].to(dev), c_card, masks[t].to(dev))
+            assert rel(h_card, h_cpu) < 1e-4 and rel(c_card, c_cpu) < 1e-4, t
+            steps.append(h_card)
+        seq, carry = card.unroll(xs.reshape((nsteps * nb,) + shape).to(dev), c0.to(dev),
+                                 masks.to(dev))
+    torch.testing.assert_close(seq, torch.cat(steps), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(carry, c_card, rtol=1e-5, atol=1e-6)

@@ -101,9 +101,13 @@ def test_nature_cnn_through_convert():
 
 
 def test_unported_networks_raise():
+    """No network name of the JAX package is left unported: the names that raised
+    ``NotImplementedError`` until item 4 build (each is held to the JAX network in
+    tests/test_torch_networks.py); a name the JAX package does not know raises
+    ``KeyError``."""
     for name in ("cnn_small", "impala_cnn", "conv_only", "lstm", "cnn_lstm"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            get_network(name)
+        net = get_network(name, ob_shape=(36, 36, 1))
+        assert net.latent_size > 0
     with pytest.raises(KeyError):
         get_network("no_such_net")
 

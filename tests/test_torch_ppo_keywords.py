@@ -1,12 +1,13 @@
 """ppo2's ``learn`` takes every keyword of the JAX package's ``learn``
 (baselines_tpu/algos/ppo/ppo.py:399-428).
 
-The two ported options, ``clip_value=False`` (ppo1's plain value MSE) and
-``adv_norm="batch"`` (advantages standardized once over the whole batch), run one full
-update against the JAX update with the same draws, as tests/test_torch_update.py does
-for the defaults. Every other keyword raises ``NotImplementedError`` naming the
-ROADMAP.md item that brings it, instead of falling into the network's keywords, but
-``save_interval`` and ``load_path``, which write and read checkpoints.
+The two options ``clip_value=False`` (ppo1's plain value MSE) and ``adv_norm="batch"``
+(advantages standardized once over the whole batch) run one full update against the
+JAX update with the same draws, as tests/test_torch_update.py does for the defaults;
+``value_network="copy"`` and ``microbatch_size`` run here and are held to the JAX update
+in tests/test_torch_ppo_variants.py; ``save_interval`` and ``load_path`` write and read
+checkpoints. ``pipeline`` and ``mesh`` raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them, instead of falling into the network's keywords.
 
 Each option must also change the update on these inputs, so that the comparison with
 JAX can tell a port that honours it from one that ignores it: ``clip_value=False``
@@ -85,8 +86,6 @@ def test_checkpoint_keyword_works(tmp_path, option):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"value_network": "copy"}, "item 4"),
-    ({"microbatch_size": 64}, "item 4"),
     ({"pipeline": True}, "item 8"),
     ({"mesh": object()}, "item 5"),
 ])
@@ -94,6 +93,23 @@ def test_unported_keyword_raises_not_implemented(kwargs, item):
     """Raised before any env or network is built, naming the Queue 1 item."""
     with pytest.raises(NotImplementedError, match=item):
         learn(env_id="AtariSim-v0", total_timesteps=0, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"value_network": "copy"}, {"microbatch_size": 64}],
+                         ids=["value_network_copy", "microbatch_size"])
+def test_item4_keyword_runs(kwargs):
+    """The two keywords that raised until item 4 was ported run an update on CartPole-v1:
+    ``value_network="copy"`` with a value tower of its own init beside the policy's
+    network, ``microbatch_size=64`` as two microbatches of the 128-sample minibatch."""
+    model = learn(env_id="CartPole-v1", num_envs=2, nsteps=64, nminibatches=1, noptepochs=1,
+                  total_timesteps=128, device="cpu", seed=0, log_interval=100, **kwargs)
+    assert model.state.update_idx == 1
+    module = model.policy.module
+    if "value_network" in kwargs:
+        assert type(module.value_network).__name__ == "MLP"
+        assert not torch.equal(module.value_network.mlp_fc0.weight, module.network.mlp_fc0.weight)
+    else:
+        assert module.value_network is None
 
 
 def test_reference_defaults_are_accepted():

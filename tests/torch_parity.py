@@ -168,11 +168,13 @@ def push_rollout_step(draws: ReplayDraws, env, key, num_envs: int, ac_space):
     return key
 
 
-def push_epochs(draws: ReplayDraws, key, noptepochs: int, nbatch: int) -> None:
-    """The epoch permutations of one update (algos/ppo/ppo.py:374-375, :321)."""
+def push_epochs(draws: ReplayDraws, key, noptepochs: int, n: int) -> None:
+    """The epoch permutations of one update (algos/ppo/ppo.py:374-375): of the ``n`` =
+    T * N samples of a feedforward update (:321), or of the ``n`` = N envs of a
+    recurrent one (:241)."""
     ekeys = jax.random.split(key, noptepochs + 1)
     for ekey in ekeys[1:]:
-        draws.push("permutation", jax.random.permutation(ekey, nbatch))
+        draws.push("permutation", jax.random.permutation(ekey, n))
 
 
 def policy_params(seed: int, n_actions: int = 6) -> dict:
@@ -276,28 +278,66 @@ def port_vec_env(venv):
     return venv
 
 
-def one_ppo_update(env_id: str = "AtariSim-v0", env_kwargs=None, **options) -> dict:
-    """One full ppo2 update of the port and of the JAX package on the CPU, at 8 envs x
-    16 steps, 2 epochs of 2 minibatches, with ``env_kwargs`` (``normalize``,
-    ``reward_scale``) passed to both ``build_env`` and ``options`` (``adv_norm``,
-    ``clip_value``) to both ``make_update_fn``: on AtariSim-v0 packed by VecS2D with
-    cnn_s2d in f32, or on another env with mlp (a Gaussian head, whose ``logstd`` starts
-    at -0.5, for a Box action space).
+def init_params(jmodule_init, seed: int, *args) -> dict:
+    """Flax's own init of a module (``jmodule_init(key, *args)``), every leaf then moved
+    by noise (a tenth of the leaf's spread, or 0.1 where the init made it constant), so
+    that biases, the LSTM's ``b`` and the LayerNorms' scales differ from their init
+    constants and a tensor mapped to the wrong place cannot go unseen."""
+    params = jax.jit(jmodule_init)(jax.random.PRNGKey(seed), *args)
+    rng = np.random.RandomState(seed)
 
-    Both start from the same weights (carried across by convert.py) and the same env
+    def move(x):
+        x = np.asarray(x, np.float32)
+        spread = float(x.std()) or 1.0
+        return (x + 0.1 * spread * rng.randn(*x.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map(move, params)
+
+
+def one_ppo_update(env_id: str = "AtariSim-v0", env_kwargs=None, *, network: str | None = None,
+                   network_kwargs=None, value_network: str | None = None, make_envs=None,
+                   hparams=None, max_grad_norm=0.5, lr=3e-4, cliprange=0.2,
+                   **options) -> dict:
+    """One full ppo2 update of the port and of the JAX package on the CPU, by default at
+    8 envs x 16 steps, 2 epochs of 2 minibatches, with ``env_kwargs`` (``normalize``,
+    ``reward_scale``) passed to both ``build_env`` and ``options`` (``adv_norm``,
+    ``clip_value``, ``microbatch_size``) to both ``make_update_fn``: on AtariSim-v0
+    packed by VecS2D with cnn_s2d in f32, or on another env with mlp (a Gaussian head,
+    whose ``logstd`` starts at -0.5, for a Box action space).
+
+    ``network`` with ``network_kwargs`` and ``value_network`` replace that network on
+    both sides; ``make_envs(nenvs)`` gives (the JAX venv, the port's venv) in place of
+    ``build_env(env_id)``, for an env the registry does not hold; ``hparams`` replace
+    entries of ``UPDATE_HPARAMS`` (and ``nenvs``), and ``max_grad_norm``, ``lr`` and
+    ``cliprange`` go to both optimizers and schedules.
+
+    Both start from the same weights (carried across by convert.py: made by numpy for
+    the default networks, by flax's init moved by noise for any other) and the same env
     state. The port is handed the very draws the JAX update makes, rebuilt from the same
     key splits (algos/ppo/ppo.py:374-375, algos/common.py:228-230): the sampling noise
-    and env draws of every rollout step, then the epoch permutations. Returns the
-    new states and metrics of both sides, the port's policy and its starting weights,
-    and on CartPole the port's env, which recorded every state it stepped through."""
-    atari = env_id == "AtariSim-v0"
-    network, s2d = ("cnn_s2d", 4) if atari else ("mlp", 0)
+    and env draws of every rollout step, then the epoch permutations, of the samples or,
+    for a recurrent policy, of the envs. Returns the new states and metrics of both
+    sides, the port's policy and its starting weights, and on CartPole the port's env,
+    which recorded every state it stepped through."""
+    hp = dict(UPDATE_HPARAMS, **(hparams or {}))
+    nenvs = hp.pop("nenvs", NENVS)
+    nsteps, noptepochs = hp["nsteps"], hp["noptepochs"]
+    atari = env_id == "AtariSim-v0" and make_envs is None
+    default_network, s2d = ("cnn_s2d", 4) if atari else ("mlp", 0)
+    custom_net = network is not None or value_network is not None
+    network = network or default_network
+    network_kwargs = dict(network_kwargs or {})
     env_kwargs = dict(env_kwargs or {})
-    venv = jax_build_env(env_id, NENVS, s2d=s2d, **env_kwargs)
+    if make_envs is None:
+        venv = jax_build_env(env_id, nenvs, s2d=s2d, **env_kwargs)
+    else:
+        venv, tvenv = make_envs(nenvs)
     ac_space = venv.action_space
-    jpol = jax_build_policy(venv.observation_space, ac_space, network)
-    tx = adam_optimizer(0.5, eps=1e-5)
-    # learn()'s make_state (algos/ppo/ppo.py:508-521), with the params made by numpy
+    jpol = jax_build_policy(venv.observation_space, ac_space, network,
+                            value_network=value_network, **network_kwargs)
+    tx = adam_optimizer(max_grad_norm, eps=1e-5)
+    # learn()'s make_state (algos/ppo/ppo.py:508-521), with the params made by numpy or
+    # moved from flax's init
     key, kreset, _ = jax.random.split(jax.random.PRNGKey(0), 3)
     obs, env_state = venv.reset(kreset)
     pdtype = jax_make_pdtype(ac_space)
@@ -306,43 +346,48 @@ def one_ppo_update(env_id: str = "AtariSim-v0", env_kwargs=None, **options) -> d
     ob_space = venv.observation_space
     ob_width = (int(np.sum(ob_space.nvec)) if hasattr(ob_space, "nvec")
                 else int(np.prod(ob_space.shape)))
-    params = policy_params(0, width) if atari else mlp_policy_params(0, ob_width, width)
-    if gaussian:
-        params["params"]["logstd"] = np.full((1, width), -0.5, np.float32)
+    if custom_net:
+        params = init_params(jpol.init, 0, obs)
+    else:
+        params = policy_params(0, width) if atari else mlp_policy_params(0, ob_width, width)
+        if gaussian:
+            params["params"]["logstd"] = np.full((1, width), -0.5, np.float32)
     state = JaxTrainState(params=params, opt_state=tx.init(params), key=key,
-                          env_state=env_state, obs=obs, rnn_state=None,
-                          last_done=jnp.zeros((NENVS,), bool), update_idx=jnp.zeros((), jnp.int32))
-    update = jax.jit(jax_make_update_fn(jpol, venv, tx, lr_fn=jax_schedule(3e-4),
-                                        cliprange_fn=jax_schedule(0.2), **UPDATE_HPARAMS,
-                                        **options))
+                          env_state=env_state, obs=obs, rnn_state=jpol.initial_state(nenvs),
+                          last_done=jnp.zeros((nenvs,), bool), update_idx=jnp.zeros((), jnp.int32))
+    update = jax.jit(jax_make_update_fn(jpol, venv, tx, lr_fn=jax_schedule(lr),
+                                        cliprange_fn=jax_schedule(cliprange), **hp, **options))
     jnew, jmetrics = update(state)
 
     base = base_env(venv)
     draws = ReplayDraws()
-    push_reset(draws, base, kreset, NENVS)
+    push_reset(draws, base, kreset, nenvs)
     k = key
-    for _ in range(NSTEPS):
-        k = push_rollout_step(draws, base, k, NENVS, ac_space)
-    push_epochs(draws, k, NEPOCHS, NENVS * NSTEPS)
+    for _ in range(nsteps):
+        k = push_rollout_step(draws, base, k, nenvs, ac_space)
+    push_epochs(draws, k, noptepochs, nenvs if jpol.is_recurrent else nenvs * nsteps)
 
-    tvenv = build_env(env_id, NENVS, device="cpu", s2d=s2d, **env_kwargs)
     recorder = None
-    if env_id.startswith("CartPole"):
-        recorder = RecordStates(port_vec_env(tvenv).env)
-        port_vec_env(tvenv).env = recorder
-    tpol = build_policy(tvenv.observation_space, tvenv.action_space, network, device="cpu")
+    if make_envs is None:
+        tvenv = build_env(env_id, nenvs, device="cpu", s2d=s2d, **env_kwargs)
+        if env_id.startswith("CartPole"):
+            recorder = RecordStates(port_vec_env(tvenv).env)
+            port_vec_env(tvenv).env = recorder
+    tpol = build_policy(tvenv.observation_space, tvenv.action_space, network, device="cpu",
+                        value_network=value_network, **network_kwargs)
     start = convert.policy_state_dict(params)
     tpol.module.load_state_dict(start)
-    opt = ClipAdam(tpol.module.parameters(), 0.5, eps=1e-5)
+    opt = ClipAdam(tpol.module.parameters(), max_grad_norm, eps=1e-5)
     tobs, tenv_state = tvenv.reset(draws)
-    if atari or env_id.startswith("CartPole"):
+    if atari or env_id.startswith("CartPole") or make_envs is not None:
         np.testing.assert_array_equal(tobs.numpy(), np.asarray(obs))
     else:  # sin/cos, and the normalization's sums, round otherwise
         np.testing.assert_allclose(tobs.numpy(), np.asarray(obs), rtol=1e-5, atol=1e-5)
     tstate = PPOTrainState(env_state=tenv_state, obs=tobs,
-                           last_done=torch.zeros((NENVS,), dtype=torch.bool))
-    update_fn = make_update_fn(tpol, tvenv, opt, lr_fn=resolve_fraction_schedule(3e-4),
-                               cliprange_fn=resolve_fraction_schedule(0.2), **UPDATE_HPARAMS,
+                           last_done=torch.zeros((nenvs,), dtype=torch.bool),
+                           rnn_state=tpol.initial_state(nenvs))
+    update_fn = make_update_fn(tpol, tvenv, opt, lr_fn=resolve_fraction_schedule(lr),
+                               cliprange_fn=resolve_fraction_schedule(cliprange), **hp,
                                **options)
     tnew, tmetrics = update_fn(tstate, draws)
     assert not draws.queue, "the port took fewer draws than the JAX update made"
