@@ -1,9 +1,10 @@
 """Algorithm registry (counterpart of baselines_tpu/algos/__init__.py, after
 baselines/run.py:154-167's import-by-name discovery).
 
-``ppo2``/``ppo``, ``ppo1`` and ``deepq``/``dqn`` are ported. Every other algorithm the
-JAX package knows raises ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1
-that brings it; a name the JAX package does not know raises ``ValueError``.
+``ppo2``/``ppo``, ``ppo1``, ``a2c`` and ``deepq``/``dqn`` are ported. Every other
+algorithm the JAX package knows raises ``NotImplementedError`` naming the item of
+ROADMAP.md's Queue 1 that brings it; a name the JAX package does not know raises
+``ValueError``.
 """
 
 from importlib import import_module
@@ -12,14 +13,12 @@ _ALGOS = {
     "ppo2": "baselines_tpu_torch.algos.ppo.ppo",
     "ppo": "baselines_tpu_torch.algos.ppo.ppo",
     "ppo1": "baselines_tpu_torch.algos.ppo1.ppo1",
+    "a2c": "baselines_tpu_torch.algos.a2c.a2c",
     "deepq": "baselines_tpu_torch.algos.dqn.dqn",
     "dqn": "baselines_tpu_torch.algos.dqn.dqn",
 }
-_NOT_PORTED = {
-    "a2c": "item 6",
-    **{name: "item 7" for name in ("trpo_mpi", "trpo", "ddpg", "her", "acktr", "acer",
-                                   "gail")},
-}
+_NOT_PORTED = {name: "item 7" for name in ("trpo_mpi", "trpo", "ddpg", "her", "acktr",
+                                           "acer", "gail")}
 
 
 def algo_names():

@@ -2,16 +2,21 @@
 
 - ``build_env``: env id -> the JAX package's wrapper chain for a device env
   ([ClipActions] -> VecTorchEnv -> VecMonitor -> [VecRewardScale] -> [VecNormalize] ->
-  [VecFrameStack] -> [VecS2D]).
+  [VecFrameStack] -> [VecS2D]), the monitor and the normalization across the ranks of a
+  mesh ``axis_name``.
 - ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
   returns a time-major trajectory and, for a recurrent policy, the carry.
-- ``ClipAdam``: clip by global norm, then Adam, then ``p -= lr * u``, with the
-  arithmetic of ``optax.chain(clip_by_global_norm, scale_by_adam)`` and
-  ``apply_updates_lr``.
+- ``ClipAdam`` and ``ClipRMSProp``: clip by global norm, then Adam or RMSProp, then
+  ``p -= lr * u``, with the arithmetic of ``optax.chain(clip_by_global_norm,
+  scale_by_adam)`` or ``scale_by_rms`` and ``apply_updates_lr``; under a mesh the
+  gradients are first averaged over the ranks, so the norm is the global gradient's.
+- ``learner_device``, ``update_metrics`` and ``mesh_metrics``: a learner's device, and
+  an update's metrics, under a mesh the rank's shares, reduced over the ranks only on
+  the updates that log.
 - ``Model``: what ``learn`` returns, with ``save``/``load`` of the params and the
   VecNormalize statistics (the ``--save_path`` payload) and ``save_full``/``load_full``
-  of the whole train state.
+  of the whole train state, in a one-process layout also under a mesh.
 - ``evaluate``: a bounded rollout of a trained model, the ``--play`` report, under the
   statistics the model was trained with, with the carry of a recurrent policy.
 """
@@ -24,6 +29,10 @@ from dataclasses import dataclass
 import torch
 
 from baselines_tpu_torch.core import checkpoint as ckpt
+from baselines_tpu_torch.core.device import resolve_device
+from baselines_tpu_torch.core.math import explained_variance
+from baselines_tpu_torch.distributed.collectives import all_gather_rows, merged_moments, pmean
+from baselines_tpu_torch.distributed.mesh import barrier, gather_state, shard_state
 from baselines_tpu_torch.envs.base import ClipActions
 from baselines_tpu_torch.envs.registry import get_env_type, make_env
 from baselines_tpu_torch.envs.spaces import Box
@@ -40,22 +49,24 @@ def not_ported(algo: str, option: str, where: str):
 
 
 def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = None,
-              reward_scale: float = 1.0, frame_stack: int = 0, s2d: int = 0):
+              reward_scale: float = 1.0, frame_stack: int = 0, s2d: int = 0,
+              axis_name=None):
     """The device env's chain of common.py:84-187: ClipActions on a ``Box`` action
     space, VecTorchEnv, VecMonitor, VecRewardScale when ``reward_scale`` != 1 (outside
     the monitor, whose statistics stay raw), VecNormalize when ``normalize`` (None:
     only for mujoco envs), VecFrameStack when ``frame_stack`` > 1, VecS2D when
-    ``s2d``."""
+    ``s2d``. Under a mesh ``axis_name``, ``num_envs`` is the rank's envs, and the
+    monitor and the normalization take every rank's."""
     env = make_env(env_id)
     if isinstance(env.action_space, Box):
         env = ClipActions(env)
-    venv = VecMonitor(VecTorchEnv(env, num_envs, device))
+    venv = VecMonitor(VecTorchEnv(env, num_envs, device), axis_name=axis_name)
     if reward_scale != 1.0:
         venv = VecRewardScale(venv, reward_scale)
     if normalize is None:
         normalize = get_env_type(env_id) == "mujoco"
     if normalize:
-        venv = VecNormalize(venv)
+        venv = VecNormalize(venv, axis_name=axis_name)
     if frame_stack and frame_stack > 1:
         venv = VecFrameStack(venv, frame_stack)
     if s2d:
@@ -78,17 +89,66 @@ class Trajectory:
     rnn_masks: torch.Tensor  # done BEFORE step t, (T, N) f32
 
 
+def learner_device(mesh, device) -> torch.device:
+    """The device a learner runs on: the mesh's under a mesh (``device``, when given,
+    must name the same), else ``resolve_device(device)``."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device={device!r} differs from the mesh's device {mesh.device}")
+    return mesh.device
+
+
+def update_metrics(metrics: dict, ypred: torch.Tensor, y: torch.Tensor, mesh) -> dict:
+    """An update's ``metrics`` (the means of its loss terms) with the explained variance
+    of ``ypred`` for ``y``. Under a mesh both are the rank's shares: ``explained_variance``
+    is left as the moments of the rank's shard under ``"ev_moments"``, for
+    ``mesh_metrics`` to merge on the updates that log."""
+    if mesh is None:
+        return dict(metrics, explained_variance=explained_variance(ypred, y))
+    y = y.reshape(-1).to(torch.float32)
+    d = y - ypred.reshape(-1).to(torch.float32)
+    moments = torch.stack([y.mean(), d.mean(), torch.var(y, correction=0),
+                           torch.var(d, correction=0)])
+    return dict(metrics, ev_moments=moments)
+
+
+def mesh_metrics(metrics: dict, mesh) -> dict:
+    """The whole mesh's metrics from a rank's ``update_metrics``, in one gather: each
+    tensor metric's mean over the ranks' equal-size shares, and ``explained_variance``
+    over the global batch from the ranks' merged moments (math_util.py:29-47: nan where
+    Var[y] is 0). Collective; without a mesh the metrics come back as they are."""
+    if mesh is None:
+        return metrics
+    names = [k for k, v in metrics.items() if isinstance(v, torch.Tensor) and k != "ev_moments"]
+    local = torch.cat([torch.stack([metrics[k] for k in names]), metrics["ev_moments"]])
+    every = all_gather_rows(local[None], mesh)  # (size, len(names) + 4)
+    means = dict(zip(names, every[:, :len(names)].mean(dim=0).unbind()))
+    _, (vary, vard) = merged_moments(every[:, len(names):len(names) + 2],
+                                     every[:, len(names) + 2:])
+    ev = 1.0 - vard / vary
+    ev = torch.where(vary == 0, torch.full_like(ev, float("nan")), ev)
+    out = {}
+    for k, v in metrics.items():
+        if k == "ev_moments":
+            out["explained_variance"] = ev
+        else:
+            out[k] = means.get(k, v)
+    return out
+
+
 @dataclass
 class Model:
     """What ``learn`` returns (common.py:429-521): the trained policy, the final train
     state, and the optimizer and draws that the train state leaves out (the params live
     in the policy's module, the Adam moments in the optimizer, the generator in the
-    draws)."""
+    draws). Under a data-parallel ``mesh`` the state holds the rank's envs."""
 
     policy: object
     state: object
     opt: object = None
     draws: object = None
+    mesh: object = None
 
     @property
     def device(self) -> torch.device:
@@ -150,12 +210,32 @@ class Model:
 
     def save_full(self, path: str) -> None:
         """The whole train state: params, optimizer moments and count, the learner's
-        state (env state, observations, counters, replay) and the generator's state."""
-        ckpt.save_state(path, self._train_tree())
+        state (env state, observations, counters, replay) and the generator's state.
+        Under a mesh it is collective: the ranks' env rows are gathered and rank 0
+        writes the file of a one-process run."""
+        tree = self._train_tree()
+        if self.mesh is not None:
+            tree["state"] = gather_state(self.state, self.mesh)
+        save_from_rank0(path, tree, self.mesh)
 
     def load_full(self, path: str) -> "Model":
-        self.state = ckpt.load_state(path, self._train_tree(), map_location=self.device)["state"]
+        """``save_full``'s file back; under a mesh it is collective, and each rank keeps
+        its env rows."""
+        tree = self._train_tree()
+        if self.mesh is not None:  # a template of the whole state's shapes
+            tree["state"] = gather_state(self.state, self.mesh)
+        state = ckpt.load_state(path, tree, map_location=self.device)["state"]
+        self.state = state if self.mesh is None else shard_state(state, self.mesh)
         return self
+
+
+def save_from_rank0(path: str, tree, mesh) -> None:
+    """``ckpt.save_state`` by rank 0 of ``mesh`` alone (by the one process without a
+    mesh); the other ranks wait until the file is written."""
+    if mesh is None or mesh.rank == 0:
+        ckpt.save_state(path, tree)
+    if mesh is not None:
+        barrier(mesh)
 
 
 @torch.no_grad()
@@ -237,21 +317,40 @@ def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool 
     return float(stats.mean_return), float(stats.mean_length), int(stats.episodes)
 
 
-class ClipAdam:
-    """Clip-then-Adam with the learning rate given at each step (ppo2/model.py:97-116
-    order), matching optax: clip by global norm as ``g if norm < max else g / norm *
-    max`` (no epsilon), then ``scale_by_adam`` with f32 bias corrections, then
-    ``p -= lr * u``."""
+class _ClipOptimizer:
+    """Clip by global norm, then a per-parameter scale, then ``p -= lr * u``, with the
+    learning rate given at each step (ppo2/model.py:97-116 order). The clip matches
+    optax's ``clip_by_global_norm``: ``g if norm < max else g / norm * max``, no
+    epsilon. Under a ``mesh`` the gradients are first averaged over the ranks, so that
+    the norm is the global gradient's, as in the JAX package's mesh run."""
+
+    def __init__(self, params, max_grad_norm: float | None, mesh=None):
+        self.params = list(params)
+        self.max_grad_norm = max_grad_norm
+        self.mesh = mesh
+        self.count = 0
+
+    def _clipped(self, grads) -> list:
+        if self.mesh is not None:
+            grads = pmean(grads, self.mesh)
+        if self.max_grad_norm is None:
+            return list(grads)
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        trigger = g_norm < self.max_grad_norm
+        return [torch.where(trigger, g, g / g_norm * self.max_grad_norm) for g in grads]
+
+
+class ClipAdam(_ClipOptimizer):
+    """Clip-then-Adam, matching ``optax.chain(clip_by_global_norm, scale_by_adam)``:
+    ``scale_by_adam`` with f32 bias corrections."""
 
     b1, b2 = 0.9, 0.999  # optax's defaults, which ppo2 keeps
 
-    def __init__(self, params, max_grad_norm: float | None, eps: float = 1e-5):
-        self.params = list(params)
-        self.max_grad_norm = max_grad_norm
+    def __init__(self, params, max_grad_norm: float | None, eps: float = 1e-5, mesh=None):
+        super().__init__(params, max_grad_norm, mesh)
         self.eps = eps
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
 
     def state_dict(self) -> dict:
         """The moments and the step count, which sets the bias corrections."""
@@ -265,10 +364,7 @@ class ClipAdam:
 
     @torch.no_grad()
     def step(self, grads, lr: float) -> None:
-        if self.max_grad_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            trigger = g_norm < self.max_grad_norm
-            grads = [torch.where(trigger, g, g / g_norm * self.max_grad_norm) for g in grads]
+        grads = self._clipped(grads)
         self.count += 1
         f32 = torch.float32
         bc1 = 1 - torch.tensor(self.b1, dtype=f32) ** self.count
@@ -278,3 +374,35 @@ class ClipAdam:
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             u = (mu / bc1.to(p.device)) / (torch.sqrt(nu / bc2.to(p.device)) + self.eps)
             p.sub_(lr * u)
+
+
+class ClipRMSProp(_ClipOptimizer):
+    """Clip-then-RMSProp, matching ``optax.chain(clip_by_global_norm,
+    scale_by_rms(decay, eps))`` as a2c builds it (a2c.py:88-93): ``nu`` starts at 0 and
+    the scale is ``g * rsqrt(nu + eps)``, eps inside the root (optax's
+    ``eps_in_sqrt=True``), which ``torch.optim.RMSprop``'s ``g / (sqrt(nu) + eps)`` is
+    not."""
+
+    def __init__(self, params, max_grad_norm: float | None, decay: float = 0.99,
+                 eps: float = 1e-5, mesh=None):
+        super().__init__(params, max_grad_norm, mesh)
+        self.decay = decay
+        self.eps = eps
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> dict:
+        return {"nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for mine, theirs in zip(self.nu, state["nu"]):
+            mine.copy_(theirs)
+        self.count = int(state["count"])
+
+    @torch.no_grad()
+    def step(self, grads, lr: float) -> None:
+        grads = self._clipped(grads)
+        self.count += 1
+        for p, g, nu in zip(self.params, grads, self.nu):
+            nu.copy_((1 - self.decay) * (g * g) + self.decay * nu)
+            p.sub_(lr * (torch.rsqrt(nu + self.eps) * g))

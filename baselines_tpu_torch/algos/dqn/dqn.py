@@ -23,6 +23,15 @@ and resumed with its progress; ``<checkpoint_path>/best`` is written when the
 100-episode mean return improves after more than 100 episodes, and restored without
 its progress at the end, so the returned model is the best seen. The envs and the
 replay start afresh on resume, as in the reference.
+
+Under a data-parallel mesh (``mesh``) each rank steps ``num_envs / size`` envs and the
+learner is replicated, as the JAX package's mesh run leaves the replay and the key
+replicated (dqn.py:383-386): each step's transitions are gathered from every rank in
+env order, in one call, so every rank's ring is the one-process ring, and every rank
+samples the same batch; the monitor's episodes are gathered once a chunk. The gradients
+are averaged over the ranks all the same, which changes no value where the replicas
+agree and keeps them together where a device's sums are not deterministic. Rank 0
+writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -32,19 +41,21 @@ import math
 import os.path as osp
 import time
 from dataclasses import dataclass, replace
-from typing import Any, Sequence
+from typing import Any, ClassVar, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, not_ported
+from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
+                                              not_ported, save_from_rank0)
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
-from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import huber_loss
-from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.core.rng import Draws, ShardedDraws
+from baselines_tpu_torch.distributed.collectives import all_gather_fields
+from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.core.schedules import LinearSchedule
 from baselines_tpu_torch.data.prioritized import PrioritizedReplayBuffer
 from baselines_tpu_torch.data.replay import ReplayBuffer
@@ -150,7 +161,10 @@ class QPolicy:
 @dataclass
 class DQNTrainState:
     """What an iteration carries to the next; the online params live in the policy's
-    module and the Adam moments in the optimizer."""
+    module and the Adam moments in the optimizer. Under a mesh ``env_state`` and
+    ``obs`` are the rank's envs'; the rest is replicated."""
+
+    replicated_fields: ClassVar = ("target", "replay")
 
     target: QNet
     env_state: Any
@@ -183,14 +197,18 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
                       learning_starts: int, train_freq: int, gamma: float,
                       target_network_update_freq: int, prioritized_replay: bool,
                       prioritized_replay_eps: float, double_q: bool,
-                      exploration: LinearSchedule, beta_schedule: LinearSchedule):
+                      exploration: LinearSchedule, beta_schedule: LinearSchedule, mesh=None):
     """One deepq iteration (dqn.py:229-344): ``iteration(state, draws) -> (state,
     info)``. It acts, steps the envs, adds the transitions, trains when ``t >=
     learning_starts`` and ``t % train_freq < nenvs``, and copies the params to the
     target net when ``t // target_network_update_freq`` passes the syncs made. ``info``
     holds the sampled ``idx``, ``td`` and ``loss`` of a training iteration, else is
-    empty. Draws are taken in this order: the act step's, the env step's, the sample's."""
-    nenvs = venv.num_envs
+    empty. Draws are taken in this order: the act step's, the env step's, the sample's.
+
+    With a ``mesh``, ``venv`` holds the rank's envs, ``draws`` is a ``ShardedDraws``
+    whose ``replicated`` draws take the sample, the transitions of every rank are added
+    to the replay, and ``nenvs`` counts the whole mesh's envs."""
+    nenvs = venv.num_envs * (1 if mesh is None else mesh.size)
     params = opt.params
 
     def iteration(state: DQNTrainState, draws):
@@ -204,16 +222,19 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
             "next_obs": step_info["terminal_obs"],  # the pre-reset obs, the true s'
             "done": done.to(torch.float32),
         }
+        if mesh is not None:
+            transition = all_gather_fields(transition, mesh)
         replay = rb.add_batch(state.replay, transition)
         t = state.t + nenvs
 
         info = {}
         if t >= learning_starts and t % train_freq < nenvs:
+            sample_draws = draws if mesh is None else draws.replicated
             if prioritized_replay:
                 beta = float(beta_schedule.value(t))
-                batch, idx, weights = rb.sample(replay, draws, batch_size, beta)
+                batch, idx, weights = rb.sample(replay, sample_draws, batch_size, beta)
             else:
-                batch, idx = rb.sample(replay, draws, batch_size)
+                batch, idx = rb.sample(replay, sample_draws, batch_size)
                 weights = torch.ones((batch_size,), dtype=torch.float32, device=action.device)
             loss, td = td_loss(policy, state.target, batch, weights, gamma=gamma,
                                double_q=double_q)
@@ -280,6 +301,9 @@ def learn(
     """Train deepq (deepq/deepq.py:95-332 signature and defaults), logging the keys of
     dqn.py:476-490 every ``(print_freq * 100) // (chunk_size * nenvs)`` chunks.
 
+    ``mesh``, a ``Mesh`` from ``distributed.make_mesh``, trains data parallel: every
+    rank calls ``learn`` with the same arguments and steps ``num_envs / size`` of the
+    envs on the mesh's device (an ``env`` given is the rank's).
     ``device`` is the card unless the caller passes ``"cpu"``; ``env_kwargs`` go to
     ``build_env`` (``normalize``, ``reward_scale``, ``frame_stack``, ``s2d``), so the
     replay stores the observations and ``info['terminal_obs']`` as the outermost
@@ -288,14 +312,14 @@ def learn(
     wall time after each chunk, the device synchronized."""
     if param_noise:
         not_ported("deepq", "param_noise", "item 7 (its perturbation comes with ddpg)")
-    if mesh is not None:
-        not_ported("deepq", "mesh", "item 5 (data parallelism)")
-    device = resolve_device(device)
+    check_mesh(mesh, "deepq's mesh")
+    device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
-    venv = env if env is not None else build_env(env_id, num_envs, device=device,
-                                                 **(env_kwargs or {}))
-    nenvs = venv.num_envs
+    venv = env if env is not None else build_env(
+        env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh,
+        **(env_kwargs or {}))
+    nenvs = venv.num_envs * (1 if mesh is None else mesh.size)
     if not isinstance(venv.action_space, Discrete):
         raise ValueError(f"DQN requires discrete actions, got {venv.action_space!r}")
     n_actions = venv.action_space.n
@@ -306,7 +330,7 @@ def learn(
     qnet = QNet(net, n_actions, hiddens=hiddens, dueling=dueling, layer_norm=layer_norm,
                 generator=init_gen).to(device)
     policy = QPolicy(qnet, venv.observation_space, n_actions)
-    opt = ClipAdam(qnet.parameters(), grad_norm_clipping, eps=1e-5)
+    opt = ClipAdam(qnet.parameters(), grad_norm_clipping, eps=1e-5, mesh=mesh)
 
     exploration = LinearSchedule(int(exploration_fraction * total_timesteps),
                                  exploration_final_eps, 1.0)
@@ -317,7 +341,7 @@ def learn(
     else:
         rb = ReplayBuffer(buffer_size)
 
-    draws = Draws(seed, device)
+    draws = Draws(seed, device) if mesh is None else ShardedDraws(Draws(seed, device), mesh)
     obs, env_state = venv.reset(draws)
     sample_item = {
         "obs": obs[0],
@@ -332,10 +356,10 @@ def learn(
         policy, venv, rb, opt, lr=lr, batch_size=batch_size, learning_starts=learning_starts,
         train_freq=train_freq, gamma=gamma, target_network_update_freq=target_network_update_freq,
         prioritized_replay=prioritized_replay, prioritized_replay_eps=prioritized_replay_eps,
-        double_q=double_q, exploration=exploration, beta_schedule=beta_schedule,
+        double_q=double_q, exploration=exploration, beta_schedule=beta_schedule, mesh=mesh,
     )
 
-    model = Model(policy, state, opt, draws)
+    model = Model(policy, state, opt, draws, mesh)
     if load_path is not None:
         model.load(load_path)
 
@@ -375,6 +399,7 @@ def learn(
     for chunk in range(1, nchunks + 1):
         for _ in range(chunk_size):
             state, _ = iteration(state, draws)
+        state = replace(state, env_state=VecMonitor.sync_stats(state.env_state, mesh))
         if chunk_timing is not None:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -383,7 +408,7 @@ def learn(
             marker = state.t // checkpoint_freq
             if state.t >= learning_starts and marker > ckpt_marker:
                 ckpt_marker = marker
-                ckpt.save_state(latest_file, train_fields(state))
+                save_from_rank0(latest_file, train_fields(state), mesh)
                 stats = VecMonitor.get_stats(state.env_state)
                 episodes, mean100 = int(stats.episodes), float(stats.mean_return)
                 if episodes > 100 and (best_mean_reward is None or mean100 > best_mean_reward):
@@ -391,8 +416,8 @@ def learn(
                         logger.log(f"Saving best model: mean reward {best_mean_reward} -> "
                                    f"{mean100:.1f}")
                     best_mean_reward = mean100
-                    ckpt.save_state(best_file, dict(train_fields(state),
-                                                    best_mean_reward=mean100))
+                    save_from_rank0(best_file, dict(train_fields(state),
+                                                    best_mean_reward=mean100), mesh)
         if print_freq and chunk % max(1, (print_freq * 100) // steps_per_chunk) == 0:
             stats = VecMonitor.get_stats(state.env_state)
             episodes = int(stats.episodes)  # waits for the device

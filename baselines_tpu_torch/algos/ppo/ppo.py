@@ -7,13 +7,23 @@ with advantages normalized per minibatch (or once over the whole batch with
 ppo2/ppo2.py:21-218: noptepochs x nminibatches of shuffled minibatch steps, the
 learning rate and clip range annealed by the remaining fraction of training.
 
-Ported so far: feedforward and recurrent policies on one device, a shared latent or a
-separate value tower (``value_network="copy"``), and gradient microbatching. Each update
+Ported so far: feedforward and recurrent policies, a shared latent or a separate value
+tower (``value_network="copy"``), gradient microbatching, and data parallelism over a
+``Mesh`` of ranks (``mesh``). Each update
 is a rollout, GAE, then the epochs. A feedforward epoch draws a fresh permutation of the
 samples and gathers every field of the batch through the row-gather kernel
 (``ops/gather.py``); a recurrent epoch permutes the envs and replays whole env sequences
 from the carry before the rollout, the encoder once over all frames and the LSTM cell
 step by step, with plain indexing as the JAX package takes them (ppo.py:240-261).
+
+Under a mesh each rank steps ``num_envs / size`` envs and the epochs are shard-local, as
+in the JAX package's mesh run (ppo.py:263-306, 331-372): each rank permutes its own
+samples (or envs) and every minibatch is an equal slice of every rank's, so the
+row-gather kernel stays on the rank's rows. What crosses the ranks: the minibatch's
+advantage moments (or the whole batch's, with ``adv_norm="batch"``) and the gradients
+before the clip, at each minibatch; VecNormalize's statistics at each env step; the
+monitor's episodes once a rollout; the metrics and the moments of
+``explained_variance`` on the updates that log.
 
 Checkpoints as ppo.py:544-602: ``save_interval`` writes the whole train state (params,
 Adam moments and count, env state, observations, ``update_idx``, a recurrent policy's
@@ -32,12 +42,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from baselines_tpu_torch.algos.common import ClipAdam, Model, build_env, not_ported, run_rollout
+from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
+                                              mesh_metrics, not_ported, run_rollout,
+                                              update_metrics)
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.checkpoint import latest_checkpoint, periodic_path
-from baselines_tpu_torch.core.device import resolve_device
-from baselines_tpu_torch.core.math import explained_variance
-from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.core.rng import Draws, ShardedDraws
+from baselines_tpu_torch.distributed.collectives import merge_moments
+from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.core.schedules import resolve_fraction_schedule
 from baselines_tpu_torch.data.gae import gae
 from baselines_tpu_torch.envs.vec import VecMonitor
@@ -114,17 +126,23 @@ def make_ppo_loss(policy, ent_coef: float, vf_coef: float, clip_value: bool = Tr
     return loss_fn
 
 
-def _normalize_advs(returns: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+def _normalize_advs(returns: torch.Tensor, values: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Standardized advantages, the standard deviation the root of the variance as
+    ``jnp.std`` takes it; under a mesh by the moments of every rank's advantages
+    (ppo.py:183-189 over the minibatch merged from the shards, :352-358)."""
     advs = returns - values
-    return (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+    mean, var = advs.mean(), advs.var(correction=0)
+    if mesh is not None:
+        mean, var = merge_moments(mean, var, mesh)
+    return (advs - mean) / (torch.sqrt(var) + 1e-8)
 
 
 def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepochs, gamma,
                    lam, ent_coef, vf_coef, lr_fn, cliprange_fn, nupdates,
                    microbatch_size: int | None = None, adv_norm: str = "minibatch",
-                   clip_value: bool = True):
-    """One PPO update (ppo.py:130-396, one device): ``update_fn(state, draws) -> (state,
-    metrics)``. The rollout takes its draws first, then each epoch one permutation.
+                   clip_value: bool = True, mesh=None):
+    """One PPO update (ppo.py:130-396): ``update_fn(state, draws) -> (state, metrics)``.
+    The rollout takes its draws first, then each epoch one permutation.
     ``adv_norm="batch"`` standardizes the advantages once over the whole batch and
     shuffles them with the other fields.
 
@@ -134,35 +152,50 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
     its envs' carry before the rollout (ppo.py:240-261), so ``nminibatches`` must
     divide N. ``microbatch_size`` splits each feedforward minibatch, its advantages
     already standardized, into microbatches whose gradients and metrics are averaged
-    before the one optimizer step (ppo.py:183-206)."""
+    before the one optimizer step (ppo.py:183-206).
+
+    With a ``mesh``, ``venv`` holds the rank's envs, ``draws`` gives the rank's rows and
+    its shard's permutations (``core.rng.ShardedDraws``), and ``opt`` averages the
+    gradients over the ranks. Each rank's epoch permutes its own samples (or envs) and
+    takes 1/size of every minibatch from them; a microbatch takes ``microbatch_size /
+    size`` of the rank's rows. The advantage moments are the whole mesh's, and so is the
+    monitor's ring after the rollout; the metrics are the rank's shares, which
+    ``algos.common.mesh_metrics`` reduces."""
     if adv_norm not in ("minibatch", "batch"):
         raise ValueError(f"adv_norm must be 'minibatch' or 'batch', got {adv_norm!r}")
-    nenvs = venv.num_envs
+    size = 1 if mesh is None else mesh.size
+    nenvs = venv.num_envs  # the rank's
     nbatch = nenvs * nsteps
     nbatch_train = nbatch // nminibatches
     recurrent = policy.is_recurrent
     if recurrent and nenvs % nminibatches:
         raise ValueError(f"recurrent PPO needs nminibatches ({nminibatches}) to divide "
-                         f"num_envs ({nenvs}) (ppo2/ppo2.py:107)")
+                         f"num_envs ({nenvs} on each of {size} ranks) (ppo2/ppo2.py:107)")
+    if mesh is not None and nbatch % nminibatches:
+        raise ValueError(f"nminibatches ({nminibatches}) must divide each rank's "
+                         f"{nbatch} samples under a mesh (ppo.py:344)")
     if recurrent and microbatch_size is not None:
         raise NotImplementedError("microbatching a recurrent policy is not supported, as in "
                                   "the JAX package (ppo.py:181)")
-    if microbatch_size is not None and nbatch_train % microbatch_size:
+    if microbatch_size is not None and (microbatch_size % size
+                                        or nbatch_train % (microbatch_size // size)):
         raise ValueError(f"microbatch_size {microbatch_size} does not divide the minibatch "
-                         f"of {nbatch_train}")
+                         f"of {nbatch_train * size}" + (f" in {size} equal rank slices"
+                                                         if size > 1 else ""))
+    micro = None if microbatch_size is None else microbatch_size // size
     loss_fn = make_ppo_loss(policy, ent_coef, vf_coef, clip_value)
     params = opt.params
 
     def minibatch_grads(mb, advs, cliprange, rnn_init):
         """The minibatch's gradients and metrics, the mean over its microbatches when
         ``microbatch_size`` is set (ppo2/microbatched_model.py:35-75)."""
-        if microbatch_size is None:
+        if micro is None:
             loss, metrics = loss_fn(mb, advs, cliprange, rnn_init)
             return torch.autograd.grad(loss, params), metrics
-        nmicro = nbatch_train // microbatch_size
+        nmicro = nbatch_train // micro
         grads, metrics = None, []
         for j in range(nmicro):
-            part = slice(j * microbatch_size, (j + 1) * microbatch_size)
+            part = slice(j * micro, (j + 1) * micro)
             loss, m = loss_fn([x[part] for x in mb], advs[part], cliprange)
             g = torch.autograd.grad(loss, params)
             grads = g if grads is None else [a + b for a, b in zip(grads, g)]
@@ -179,15 +212,16 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
         env_state, obs, last_done, traj, last_value, rnn_state = run_rollout(
             policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps,
             rollout_init_rnn)
+        env_state = VecMonitor.sync_stats(env_state, mesh)
         advs, returns = gae(traj.rewards, traj.values, traj.dones, last_value, gamma, lam)
         batch_t = [traj.obs, traj.actions, returns, traj.values, traj.neglogps, traj.rnn_masks]
         if adv_norm == "batch":
-            batch_t.append(_normalize_advs(returns, traj.values))
+            batch_t.append(_normalize_advs(returns, traj.values, mesh))
 
         metrics = []
 
         def train(mb, rnn_init):
-            mb_advs = mb.pop() if adv_norm == "batch" else _normalize_advs(mb[2], mb[3])
+            mb_advs = mb.pop() if adv_norm == "batch" else _normalize_advs(mb[2], mb[3], mesh)
             grads, mb_metrics = minibatch_grads(mb, mb_advs, cliprange, rnn_init)
             opt.step(grads, lr)
             metrics.append({k: v.detach() for k, v in mb_metrics.items()})
@@ -208,7 +242,7 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
                     train([x[i * nbatch_train:(i + 1) * nbatch_train] for x in shuffled], None)
 
         out = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-        out["explained_variance"] = explained_variance(_flat01(traj.values), _flat01(returns))
+        out = update_metrics(out, _flat01(traj.values), _flat01(returns), mesh)
         out["learning_rate"] = lr
         out["cliprange"] = cliprange
         new_state = PPOTrainState(env_state=env_state, obs=obs, last_done=last_done,
@@ -255,27 +289,31 @@ def learn(
     Takes every keyword of the JAX package's ``learn``; those whose part is not ported
     yet raise ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that
     brings it. ``pipeline=None`` picks the on-device rollout, as the JAX package does
-    for a device env. ``device`` is the card unless the caller passes ``"cpu"``;
+    for a device env. ``mesh``, a ``Mesh`` from ``distributed.make_mesh``, trains data
+    parallel: every rank of the mesh calls ``learn`` with the same arguments, steps
+    ``num_envs / size`` of the envs on the mesh's device (an ``env`` given is the
+    rank's) and holds the same params; the log and the checkpoints are the whole
+    mesh's, written by rank 0. ``device`` is the card unless the caller passes ``"cpu"``;
     ``env_kwargs`` go to ``build_env`` (``normalize``, ``reward_scale``,
     ``frame_stack``, ``s2d``) and the remaining keywords to the network (for example
     ``dtype=torch.bfloat16``)."""
     if pipeline:
         not_ported("ppo2", "pipeline", "item 8 (the host pipeline)")
-    if mesh is not None:
-        not_ported("ppo2", "mesh", "item 5 (data parallelism)")
-    device = resolve_device(device)
+    check_mesh(mesh, "ppo2's mesh")
+    device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
-    venv = env if env is not None else build_env(env_id, num_envs, device=device,
-                                                 **(env_kwargs or {}))
-    nbatch = venv.num_envs * nsteps
+    venv = env if env is not None else build_env(
+        env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh,
+        **(env_kwargs or {}))
+    nbatch = venv.num_envs * nsteps * (1 if mesh is None else mesh.size)
     nupdates = max(total_timesteps // nbatch, 1) if total_timesteps > 0 else 0
 
     init_gen = torch.Generator().manual_seed(seed)
     policy = build_policy(venv.observation_space, venv.action_space, network, device=device,
                           generator=init_gen, value_network=value_network, **network_kwargs)
-    opt = ClipAdam(policy.module.parameters(), max_grad_norm, eps=adam_epsilon)
-    draws = Draws(seed, device)
+    opt = ClipAdam(policy.module.parameters(), max_grad_norm, eps=adam_epsilon, mesh=mesh)
+    draws = Draws(seed, device) if mesh is None else ShardedDraws(Draws(seed, device), mesh)
     obs, env_state = venv.reset(draws)
     state = PPOTrainState(env_state=env_state, obs=obs,
                           last_done=torch.zeros((venv.num_envs,), dtype=torch.bool, device=device),
@@ -285,10 +323,10 @@ def learn(
         gamma=gamma, lam=lam, ent_coef=ent_coef, vf_coef=vf_coef,
         lr_fn=resolve_fraction_schedule(lr), cliprange_fn=resolve_fraction_schedule(cliprange),
         nupdates=nupdates, microbatch_size=microbatch_size, adv_norm=adv_norm,
-        clip_value=clip_value,
+        clip_value=clip_value, mesh=mesh,
     )
 
-    model = Model(policy, state, opt, draws)
+    model = Model(policy, state, opt, draws, mesh)
     if load_path is not None:
         model.load(load_path)
     start_update = 0
@@ -304,6 +342,7 @@ def learn(
     for update in range(start_update + 1, nupdates + 1):
         state, metrics = update_fn(state, draws)
         if update % log_interval == 0 or update == 1:
+            metrics = mesh_metrics(metrics, mesh)
             metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
             tnow = time.time()
             fps = int((update - lastlog_update) * nbatch / (tnow - tlastlog))

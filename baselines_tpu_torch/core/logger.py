@@ -2,8 +2,11 @@
 
 Same contract as baselines/logger.py: ``logkv`` last-wins, ``logkv_mean`` running
 mean, ``dumpkvs`` writes the accumulated row to every output format and clears it;
-formats are the human table, json-lines and csv. The multi-process reduction and the
-tensorboard format are not ported yet.
+formats are the human table, json-lines and csv. When several processes form a
+``torch.distributed`` group, ``dumpkvs`` is collective: the row is the count-weighted
+mean over the processes and process 0 alone writes it (logger.py:226-248);
+``configure_for_process`` gives the other processes a log of their own. The tensorboard
+format is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import os.path as osp
 import sys
 import tempfile
 from collections import defaultdict
+
+from baselines_tpu_torch.distributed.collectives import (host_weighted_mean, process_count,
+                                                         process_index)
 
 DEBUG = 10
 INFO = 20
@@ -160,8 +166,15 @@ class Logger:
         self.name2cnt[key] = cnt + 1
 
     def dumpkvs(self):
+        """Write the row and clear it. With several processes it is collective, every
+        process calling it as often: the row is the count-weighted mean over them, and
+        process 0 alone writes it."""
         d = dict(self.name2val)
-        if self.level != DISABLED:
+        write = self.level != DISABLED
+        if process_count() > 1:
+            d = host_weighted_mean({k: (v, self.name2cnt.get(k, 1)) for k, v in d.items()})
+            write = write and process_index() == 0
+        if write:
             for fmt in self.output_formats:
                 if isinstance(fmt, KVWriter):
                     fmt.writekvs(d)
@@ -202,6 +215,17 @@ def configure(dir=None, format_strs=None, log_suffix=""):
     Logger.CURRENT = Logger(dir=dir, output_formats=output_formats)
     if output_formats:
         log(f"Logging to {dir}")
+
+
+def configure_for_process(process_index: int, dir=None, format_strs=None):
+    """Process 0 logs everything; the others log to ``log-proc<index>.txt`` in the same
+    dir (logger.py:295-304). Theirs are muted, not disabled: they still take part in
+    the collective ``dumpkvs``."""
+    if process_index == 0:
+        configure(dir=dir, format_strs=format_strs)
+    else:
+        configure(dir=dir, format_strs=format_strs or ["log"],
+                  log_suffix=f"-proc{process_index:03d}")
 
 
 def _get_current():

@@ -8,9 +8,11 @@ JAX package's: the count is an f32 scalar that starts at ``epsilon`` (1e-4), and
 batch variance has no correction. ``torch.var`` and ``jnp.var`` sum in other orders, so
 the statistics agree with the JAX package's to rounding, not bit for bit.
 
-The JAX package merges the batch moments across a mesh axis when ``axis_name`` is given;
-in the port that becomes a ``torch.distributed`` group with item 5 of ROADMAP.md's Queue
-1 (data parallelism), and until then a non-None ``axis_name`` raises.
+With ``axis_name``, a data-parallel ``Mesh`` (distributed/mesh.py), the batch moments
+of the ranks' equal-size shards are merged as the JAX package merges them over a mesh
+axis (running_stats.py:51-56): the mean of the means, the mean of ``var_r + (mean_r -
+mean)^2``, and the count times the number of ranks, so that every rank holds the
+statistics of the whole batch.
 """
 
 from __future__ import annotations
@@ -20,12 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
-
-def check_axis_name(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: merging running statistics across devices is not "
-            "ported yet; it comes with item 5 (data parallelism) of ROADMAP.md's Queue 1")
+from baselines_tpu_torch.distributed.collectives import merge_moments
+from baselines_tpu_torch.distributed.mesh import check_mesh
 
 
 @dataclass
@@ -45,8 +43,8 @@ class RunningMeanStd:
 
     def update(self, x: torch.Tensor, axis_name=None) -> "RunningMeanStd":
         """Fold in a batch of shape (batch..., *stat_shape); the leading axes are
-        reduced."""
-        check_axis_name(axis_name)
+        reduced, and with a mesh ``axis_name`` the ranks' batches too."""
+        check_mesh(axis_name, "RunningMeanStd.update's axis_name")
         x = x.to(torch.float32)
         reduce_dims = tuple(range(x.dim() - self.mean.dim()))
         if reduce_dims:
@@ -55,6 +53,9 @@ class RunningMeanStd:
             batch_var = torch.var(x, dim=reduce_dims, correction=0)
         else:  # one sample: torch would reduce every dim for an empty dim tuple
             batch_count, batch_mean, batch_var = 1.0, x, torch.zeros_like(x)
+        if axis_name is not None:
+            batch_mean, batch_var = merge_moments(batch_mean, batch_var, axis_name)
+            batch_count *= axis_name.size
         # a fill, not a copy from the host, which would wait for the card's stream
         count = torch.full((), batch_count, dtype=torch.float32, device=x.device)
         return self.update_from_moments(batch_mean, batch_var, count)

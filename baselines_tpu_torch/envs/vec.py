@@ -10,21 +10,25 @@ terminal observation is ``info['terminal_obs']``.
 Ported: ``VecTorchEnv`` (the batch with auto-reset), ``VecWrapper``, ``VecMonitor``
 with its ``EpisodeStats`` ring of the last 100 episodes, ``VecFrameStack``,
 ``VecRewardScale``, ``VecNormalize`` with ``find_normalize_state`` and
-``replace_normalize_stats``, and ``VecS2D`` with the packed 3-D layout. The dict-obs
-wrappers come with item 7 of ROADMAP.md's Queue 1, and the pipelined env pair's branch
-of the normalize helpers with item 8.
+``replace_normalize_stats``, and ``VecS2D`` with the packed 3-D layout. Under a
+data-parallel mesh (``axis_name``), VecMonitor's ring (after ``VecMonitor.sync_stats``)
+and VecNormalize's statistics are those of every rank's envs, held alike by every rank.
+The dict-obs wrappers come with item 7 of ROADMAP.md's Queue 1, and the pipelined env
+pair's branch of the normalize helpers with item 8.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
 
-from baselines_tpu_torch.core.running_stats import RunningMeanStd, check_axis_name
+from baselines_tpu_torch.core.running_stats import RunningMeanStd
+from baselines_tpu_torch.distributed.collectives import all_gather_rows
+from baselines_tpu_torch.distributed.mesh import check_mesh
 from baselines_tpu_torch.envs.base import TorchEnv
 from baselines_tpu_torch.envs.spaces import Box, torch_dtype
 
@@ -46,10 +50,27 @@ def _select_state(done, reset_state, state):
     })
 
 
+def _ring_write(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``val`` written at ``slot`` along axis 0; a slot of ``len(buf)``
+    drops its value."""
+    pad = buf.new_zeros((1,) + tuple(buf.shape[1:]))
+    return torch.cat([buf, pad]).index_copy(0, slot, val.to(buf.dtype))[:buf.shape[0]]
+
+
 @dataclass
 class EpisodeStats:
     """Per-env accumulators and a ring of the last 100 completed episodes' returns and
-    lengths, all on the device (the info['episode'] pipeline, bench/monitor.py:58-75)."""
+    lengths, all on the device (the info['episode'] pipeline, bench/monitor.py:58-75).
+
+    Under a mesh the accumulators are the rank's envs' and the ring, the count and the
+    steps are the whole mesh's, as the JAX package's mesh run replicates them. A step
+    only adds the episodes that end on the rank's envs to ``pending``, keyed by step and
+    global env; ``sync`` folds every rank's into the ring with one gather, in the order
+    one process stepping all the envs writes them. A rank keeps its last 100 pending
+    episodes, since the ring keeps no older one."""
+
+    replicated_fields: ClassVar = ("ret_buffer", "len_buffer", "episodes", "total_steps",
+                                   "pending", "n_pending", "pending_steps")
 
     ep_return: torch.Tensor  # (N,) f32
     ep_length: torch.Tensor  # (N,) int32
@@ -57,6 +78,9 @@ class EpisodeStats:
     len_buffer: torch.Tensor  # (EPISODE_BUFFER,) f32
     episodes: torch.Tensor  # () int64, total completed
     total_steps: torch.Tensor  # () f32
+    pending: torch.Tensor  # (EPISODE_BUFFER, 3) f64: key, return, length; a ring
+    n_pending: torch.Tensor  # () int64, the rank's episodes since the last sync
+    pending_steps: torch.Tensor  # () int64, the steps since the last sync
 
     @staticmethod
     def create(num_envs: int, device) -> "EpisodeStats":
@@ -67,29 +91,75 @@ class EpisodeStats:
             len_buffer=torch.zeros((EPISODE_BUFFER,), dtype=torch.float32, device=device),
             episodes=torch.zeros((), dtype=torch.int64, device=device),
             total_steps=torch.zeros((), dtype=torch.float32, device=device),
+            pending=torch.zeros((EPISODE_BUFFER, 3), dtype=torch.float64, device=device),
+            n_pending=torch.zeros((), dtype=torch.int64, device=device),
+            pending_steps=torch.zeros((), dtype=torch.int64, device=device),
         )
 
-    def update(self, reward: torch.Tensor, done: torch.Tensor) -> "EpisodeStats":
-        n = reward.shape[0]
+    def update(self, reward: torch.Tensor, done: torch.Tensor, mesh=None) -> "EpisodeStats":
+        """Fold in a step; with a ``mesh``, the episodes that end on the rank's envs go
+        to ``pending`` until the next ``sync``."""
         ep_return = self.ep_return + reward
         ep_length = self.ep_length + 1
+        n = done.shape[0]
         order = torch.cumsum(done.to(torch.int64), 0) - 1  # 0-based among dones
         n_done = order[-1] + 1
         # a ring written in env order keeps only the last EPISODE_BUFFER completions of
         # a step; dropping the others up front leaves every kept slot written once
         keep = done & (order >= n_done - EPISODE_BUFFER)
-        slot = torch.where(keep, (self.episodes + order) % EPISODE_BUFFER, EPISODE_BUFFER)
+        ring_start = self.episodes if mesh is None else self.n_pending
+        slot = torch.where(keep, (ring_start + order) % EPISODE_BUFFER, EPISODE_BUFFER)
+        next_return = torch.where(done, torch.zeros_like(ep_return), ep_return)
+        next_length = torch.where(done, torch.zeros_like(ep_length), ep_length)
+        if mesh is None:
+            return dataclasses.replace(
+                self,
+                ep_return=next_return,
+                ep_length=next_length,
+                ret_buffer=_ring_write(self.ret_buffer, slot, ep_return),
+                len_buffer=_ring_write(self.len_buffer, slot, ep_length.to(torch.float32)),
+                episodes=self.episodes + n_done,
+                total_steps=self.total_steps + n,
+            )
+        env = torch.arange(n, device=done.device) + mesh.rank * n
+        key = self.pending_steps * (n * mesh.size) + env
+        rows = torch.stack([key.to(torch.float64), ep_return.to(torch.float64),
+                            ep_length.to(torch.float64)], dim=1)
+        return dataclasses.replace(
+            self,
+            ep_return=next_return,
+            ep_length=next_length,
+            pending=_ring_write(self.pending, slot, rows),
+            n_pending=self.n_pending + n_done,
+            pending_steps=self.pending_steps + 1,
+            total_steps=self.total_steps + n * mesh.size,
+        )
 
-        def ring(buf, val):
-            return torch.cat([buf, buf.new_zeros(1)]).scatter(0, slot, val)[:EPISODE_BUFFER]
-
-        return EpisodeStats(
-            ep_return=torch.where(done, torch.zeros_like(ep_return), ep_return),
-            ep_length=torch.where(done, torch.zeros_like(ep_length), ep_length),
-            ret_buffer=ring(self.ret_buffer, ep_return),
-            len_buffer=ring(self.len_buffer, ep_length.to(torch.float32)),
-            episodes=self.episodes + n_done,
-            total_steps=self.total_steps + n,
+    def sync(self, mesh) -> "EpisodeStats":
+        """Every rank's pending episodes folded into the ring, newest last by (step,
+        global env), and ``pending`` emptied. Collective: one gather."""
+        head = torch.zeros((1, 3), dtype=torch.float64, device=self.pending.device)
+        head[0, 0] = self.n_pending
+        every = all_gather_rows(torch.cat([head, self.pending])[None], mesh)  # (W, 101, 3)
+        counts = every[:, 0, 0].to(torch.int64)
+        slots = torch.arange(EPISODE_BUFFER, device=counts.device)
+        valid = (slots[None] < counts[:, None]).reshape(-1)
+        rows = every[:, 1:].reshape(-1, 3)
+        newest_first = torch.argsort(torch.where(valid, rows[:, 0], -1.0), descending=True)
+        rows, valid = rows[newest_first], valid[newest_first]
+        total = counts.sum()
+        age = torch.arange(rows.shape[0], device=rows.device)
+        keep = valid & (age < EPISODE_BUFFER)
+        slot = torch.where(keep, (self.episodes + total - 1 - age) % EPISODE_BUFFER,
+                           EPISODE_BUFFER)
+        return dataclasses.replace(
+            self,
+            ret_buffer=_ring_write(self.ret_buffer, slot, rows[:, 1]),
+            len_buffer=_ring_write(self.len_buffer, slot, rows[:, 2]),
+            episodes=self.episodes + total,
+            pending=torch.zeros_like(self.pending),
+            n_pending=torch.zeros_like(self.n_pending),
+            pending_steps=torch.zeros_like(self.pending_steps),
         )
 
     def _masked_mean(self, buf: torch.Tensor) -> torch.Tensor:
@@ -173,7 +243,14 @@ class MonitorState:
 
 
 class VecMonitor(VecWrapper):
-    """Episode accounting as device state (vec_monitor.py:7-55)."""
+    """Episode accounting as device state (vec_monitor.py:7-55). With a mesh
+    ``axis_name``, the ring holds every rank's finished episodes once ``sync_stats`` has
+    folded them in (``EpisodeStats``); the learners do so after each rollout."""
+
+    def __init__(self, venv, axis_name=None):
+        super().__init__(venv)
+        check_mesh(axis_name, "VecMonitor's axis_name")
+        self.axis_name = axis_name
 
     def reset(self, draws):
         obs, inner = self.venv.reset(draws)
@@ -183,13 +260,24 @@ class VecMonitor(VecWrapper):
         return state.inner
 
     def post(self, state, obs, inner, rew, done, info):
-        return obs, MonitorState(inner, state.stats.update(rew, done)), rew, done, info
+        stats = state.stats.update(rew, done, self.axis_name)
+        return obs, MonitorState(inner, stats), rew, done, info
 
     @staticmethod
     def get_stats(state) -> EpisodeStats:
         while not isinstance(state, MonitorState):
             state = state.inner
         return state.stats
+
+    @staticmethod
+    def sync_stats(state, mesh):
+        """``state`` with its monitor's pending episodes folded into the ring of every
+        rank (``EpisodeStats.sync``), once a rollout; ``state`` itself without a mesh."""
+        if mesh is None:
+            return state
+        if isinstance(state, MonitorState):
+            return MonitorState(state.inner, state.stats.sync(mesh))
+        return dataclasses.replace(state, inner=VecMonitor.sync_stats(state.inner, mesh))
 
 
 class VecS2D(VecWrapper):
@@ -285,6 +373,8 @@ class NormalizeState:
     ret_rms: RunningMeanStd
     ret: torch.Tensor  # (N,) f32, the discounted return of each env's episode
 
+    replicated_fields: ClassVar = ("ob_rms", "ret_rms")
+
 
 class VecNormalize(VecWrapper):
     """Observation and return normalization by running statistics (vec.py:435-516,
@@ -293,13 +383,15 @@ class VecNormalize(VecWrapper):
     observations into ``ob_rms``; each step folds in the new observations and the
     discounted returns, divides the rewards by the return's standard deviation, and
     moves ``info['terminal_obs']`` into the normalized space, where a replay learner
-    stores it beside the observations."""
+    stores it beside the observations. With a mesh ``axis_name`` (vec.py:461-504), the
+    statistics fold in every rank's envs."""
 
     def __init__(self, venv, ob: bool = True, ret: bool = True, clipob: float = 10.0,
                  cliprew: float = 10.0, gamma: float = 0.99, epsilon: float = 1e-8,
                  axis_name=None):
         super().__init__(venv)
-        check_axis_name(axis_name)
+        check_mesh(axis_name, "VecNormalize's axis_name")
+        self.axis_name = axis_name
         self.ob = ob
         self.ret_flag = ret
         self.clipob = clipob
@@ -323,7 +415,7 @@ class VecNormalize(VecWrapper):
             ob_rms = RunningMeanStd.create(self.observation_space.shape, device=obs.device)
             ret_rms = RunningMeanStd.create((), device=obs.device)
         if self.ob:
-            ob_rms = ob_rms.update(obs)
+            ob_rms = ob_rms.update(obs, axis_name=self.axis_name)
         ret = torch.zeros((self.num_envs,), dtype=torch.float32, device=obs.device)
         return self._norm_obs(ob_rms, obs), NormalizeState(inner, ob_rms, ret_rms, ret)
 
@@ -334,9 +426,9 @@ class VecNormalize(VecWrapper):
         ob_rms, ret_rms = state.ob_rms, state.ret_rms
         ret = state.ret * self.gamma + rew
         if self.ob:
-            ob_rms = ob_rms.update(obs)
+            ob_rms = ob_rms.update(obs, axis_name=self.axis_name)
         if self.ret_flag:
-            ret_rms = ret_rms.update(ret)
+            ret_rms = ret_rms.update(ret, axis_name=self.axis_name)
             rew = torch.clamp(rew / torch.sqrt(ret_rms.var + self.epsilon), -self.cliprew,
                               self.cliprew)
         ret = torch.where(done, torch.zeros_like(ret), ret)

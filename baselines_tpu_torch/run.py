@@ -9,6 +9,11 @@ training, under the model's VecNormalize statistics when it has them. The learne
 on the card unless ``--device=cpu`` is given, a free-form keyword that reaches
 ``learn``. ``--save_video_interval`` and ``--gamestate`` raise ``NotImplementedError``
 naming the item of ROADMAP.md's Queue 1 that brings them.
+
+In a ``torch.distributed`` group the log is configured for the process (process 0 writes
+the rows) and process 0 alone writes ``--save_path`` (run.py:105-112). The CLI builds no
+mesh, as the JAX package's does not: data parallelism is ``learn(mesh=make_mesh())``
+under torchrun.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from baselines_tpu_torch.algos.common import build_env, evaluate
 from baselines_tpu_torch.cmd_util import common_arg_parser, parse_cmdline_kwargs
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.distributed.collectives import process_index
 from baselines_tpu_torch.envs.registry import get_env_type
 
 PLAY_STEPS = 2000
@@ -80,11 +86,11 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     args, unknown_args = common_arg_parser().parse_known_args(argv)
     extra_args = parse_cmdline_kwargs(unknown_args)
-    logger.configure(dir=args.log_path)
+    logger.configure_for_process(process_index(), dir=args.log_path)
 
     model = train(args, extra_args)
 
-    if args.save_path is not None:
+    if args.save_path is not None and process_index() == 0:
         save_path = osp.expanduser(args.save_path)
         model.save(save_path)
         logger.log(f"Saved model to {save_path}")

@@ -69,6 +69,23 @@ Phases, each printing its seconds:
         and 5 gather launches in each of its 71 training iterations, finite priorities;
         then the gather on 32 rows of a (10000, 84, 84, 4) u8 ring and the sampler at
         10240 slots with 32 targets, checked and timed in turns as in phases 4 and 5.
+  11. main path 6, data parallelism under a one-rank NCCL mesh (torchrun's variables for
+     rank 0 of 1, maybe_initialize_distributed, make_mesh):
+     a. path 1's ppo2 (cnn_s2d bf16, 256 x 128, 2 updates) with mesh=: the same kernel
+        launches as path 1, finite params, param_consistency_check true, and 34
+        collectives an update (16 gradient all-reduces, 16 advantage merges, one gather
+        of the monitor's episodes, one of the logged metrics);
+     b. ppo2 with mlp on CartPole-v1 at 256 x 128, 2 updates, with and without the mesh
+        from the same seed: the params and observations bit for bit (a one-rank
+        all-reduce changes no value), or, where two runs without the mesh already differ,
+        within that difference;
+     c. prioritized deepq with mlp on CartPole-v1 under the mesh, 4 envs, 512 steps: one
+        sampler and 5 gather launches in each of its 97 training iterations, finite params;
+     d. a2c with mlp on CartPole-v1 at its classic-control defaults under the mesh,
+        20000 steps: finite params, two collectives an update and one more an update that
+        logs, env-steps/s;
+     e. dryrun_multichip(2) over NCCL where the machine has two cards or more; with one
+        card it says why it did not run (NCCL puts no two ranks on one GPU).
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits nonzero. It exits nonzero before building anything
@@ -83,6 +100,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -220,7 +238,12 @@ def main() -> int:
         from baselines_tpu_torch import run as cli
         from baselines_tpu_torch.algos.dqn.dqn import td_loss
         from baselines_tpu_torch.algos.common import build_env, evaluate, run_rollout
+        from baselines_tpu_torch.algos.a2c import a2c
         from baselines_tpu_torch.algos.ppo.ppo import learn
+        from baselines_tpu_torch.distributed import (make_mesh, maybe_initialize_distributed,
+                                                     param_consistency_check)
+        from baselines_tpu_torch.distributed.collectives import all_gather_rows, psum
+        from baselines_tpu_torch.distributed.dryrun import dryrun_multichip
         from baselines_tpu_torch.core import logger
         from baselines_tpu_torch.core.rng import Draws
         from baselines_tpu_torch.envs.testing.fixed_sequence import FixedSequenceEnv
@@ -1170,6 +1193,227 @@ def main() -> int:
         kernels["stratified_sample"]["path5_shape"] = dict(
             shape=f"N={n}, B={batch}", max_abs_err=float(max_slots), ms=t["kernel"],
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=t["cumsum+searchsorted"])
+
+    with Phase("main path 6: data parallelism under a one-rank NCCL mesh"):
+        # torchrun's variables for rank 0 of 1 on this card, the rendezvous on a free
+        # local port; the group is NCCL, and no mesh run below falls back to anything else
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        require(maybe_initialize_distributed() and maybe_initialize_distributed(),
+                "maybe_initialize_distributed did not join the group")
+        try:
+            backend = str(torch.distributed.get_backend())
+            mesh = make_mesh()
+            require(backend == "nccl" and mesh.size == 1 and mesh.device == torch.device("cuda", 0),
+                    f"the mesh is {mesh} on backend {backend}, expected one NCCL rank on cuda:0")
+
+            @contextlib.contextmanager
+            def count_collectives():
+                """Counts the calls of torch.distributed's collectives inside the block."""
+                names = ("all_reduce", "all_gather", "all_gather_object", "barrier")
+                saved = {name: getattr(torch.distributed, name) for name in names}
+                calls = [0]
+
+                def counted(fn):
+                    def call(*args, **kwargs):
+                        calls[0] += 1
+                        return fn(*args, **kwargs)
+                    return call
+
+                for name, fn in saved.items():
+                    setattr(torch.distributed, name, counted(fn))
+                try:
+                    yield calls
+                finally:
+                    for name, fn in saved.items():
+                        setattr(torch.distributed, name, fn)
+
+            def check_params(module, what):
+                params = list(module.parameters())
+                require(all(bool(torch.isfinite(p).all()) for p in params),
+                        f"{what}: params are not finite")
+                require(param_consistency_check(params, mesh, atol=0.0),
+                        f"{what}: param_consistency_check failed")
+
+            # a. path 1 under the mesh
+            recorder = RecordingOutput()
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # by earlier phases, in the peak too
+            reset_counts()
+            start = time.perf_counter()
+            with count_collectives() as calls:
+                model = learn(env_id="AtariSim-v0", network="cnn_s2d", dtype=torch.bfloat16,
+                              env_kwargs={"s2d": 4}, num_envs=256, nsteps=128, nminibatches=4,
+                              noptepochs=4, total_timesteps=2 * 32768, seed=0, log_interval=1,
+                              mesh=mesh)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            ppo2_calls = calls[0]
+            require(ppo2_calls == 2 * (16 + 16 + 1 + 1),
+                    f"ppo2 under the mesh made {ppo2_calls} collectives in 2 logged updates, "
+                    "expected 68")
+            counts["mesh_ppo2"] = c = read_counts()
+            require(c == counts["ppo2"], f"ppo2 under the mesh launched {c}, path 1 "
+                    f"launched {counts['ppo2']}")
+            check_params(model.policy.module, "ppo2 cnn_s2d under the mesh")
+            require(len(recorder.rows) == 2 and all(
+                math.isfinite(v) for r in recorder.rows for k, v in r.items()
+                if k.startswith("loss/")), "ppo2 under the mesh: logged losses not finite")
+            peak = torch.cuda.max_memory_allocated()
+            print(f"main path 6a [{card}]: ppo2 cnn_s2d bf16 under a one-rank NCCL mesh, "
+                  f"launches {c} (path 1: {counts['ppo2']}), {ppo2_calls} NCCL calls in 2 "
+                  f"logged updates; {elapsed:.2f} s for 65536 env "
+                  f"steps = {65536 / elapsed:.0f} env-steps/s (first update included); logged "
+                  f"fps {[r['fps'] for r in recorder.rows]}; peak device memory "
+                  f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held before the run",
+                  flush=True)
+            del model
+            logger.reset()
+
+            # the cost of one collective on the one-rank NCCL group, host clock over 200
+            # calls each, the device synchronized at the end (the device's own time by
+            # CUDA events), beside a device op of the same output
+            rows = torch.randn((256, 3), device=dev)
+            grads = torch.randn((1_700_000,), device=dev)
+            calls = {"all_gather (256, 3) f32": lambda: all_gather_rows(rows, mesh),
+                     "torch.cat of the same": lambda: torch.cat([rows]),
+                     "psum (1.7M,) f32": lambda: psum([grads], mesh),
+                     "grads * 1.0": lambda: grads * 1.0}
+            costs = {}
+            for name, fn in calls.items():
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                ev0.record()
+                for _ in range(200):
+                    fn()
+                ev1.record()
+                torch.cuda.synchronize()
+                costs[name] = ((time.perf_counter() - t0) * 1e3 / 200, ev0.elapsed_time(ev1) / 200)
+            print(f"one-rank NCCL collectives [{card}]: " + "; ".join(
+                f"{k} {h:.4f} ms a call (host), {d:.4f} ms (device)"
+                for k, (h, d) in costs.items()), flush=True)
+            del rows, grads
+
+            # b. CartPole with and without the mesh, from one seed
+            def cartpole(**extra):
+                logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[])
+                m = learn(env_id="CartPole-v1", network="mlp", num_envs=256, nsteps=128,
+                          nminibatches=4, noptepochs=4, total_timesteps=2 * 256 * 128, seed=0,
+                          log_interval=1, **extra)
+                torch.cuda.synchronize()
+                logger.reset()
+                return m
+
+            def max_diff(a, b):
+                sa, sb = a.policy.module.state_dict(), b.policy.module.state_dict()
+                diffs = [float((sa[k] - sb[k]).abs().max()) for k in sa]
+                diffs.append(float((a.state.obs - b.state.obs).abs().max()))
+                return max(diffs)
+
+            start = time.perf_counter()
+            plain = cartpole()
+            plain_s = time.perf_counter() - start
+            reset_counts()
+            start = time.perf_counter()
+            meshed = cartpole(mesh=mesh)
+            elapsed = time.perf_counter() - start
+            counts["mesh_cartpole"] = c = read_counts()
+            require(c["take_rows"] == 48, f"ppo2 on CartPole under the mesh launched {c}, "
+                    "expected 48 gathers")
+            check_params(meshed.policy.module, "ppo2 on CartPole under the mesh")
+            diff = max_diff(meshed, plain)
+            if diff == 0.0:
+                verdict = "bit for bit equal to the run without the mesh"
+            else:  # hold the mesh run to the spread of two runs without it
+                noise = max_diff(cartpole(), plain)
+                require(diff <= noise, f"the mesh run differs by {diff}, two runs without the "
+                        f"mesh by {noise}")
+                verdict = (f"within {diff:.3g} of the run without the mesh, where two runs "
+                           f"without it differ by {noise:.3g}")
+            print(f"main path 6b [{card}]: ppo2 mlp on CartPole-v1 256 x 128 under the mesh, "
+                  f"launches {c}; {elapsed:.2f} s for 65536 env steps ({plain_s:.2f} s without "
+                  f"the mesh); params and obs {verdict}", flush=True)
+            del plain, meshed
+
+            # c. prioritized deepq under the mesh
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[])
+            steps, starts, nenv = 512, 128, 4
+            train_iters = sum(1 for t in range(nenv, steps + 1, nenv) if t >= starts)
+            reset_counts()
+            start = time.perf_counter()
+            model = dqn.learn(env_id="CartPole-v1", network="mlp", num_envs=nenv,
+                              total_timesteps=steps, learning_starts=starts, batch_size=32,
+                              chunk_size=16, prioritized_replay=True, print_freq=0, seed=0,
+                              mesh=mesh)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            logger.reset()
+            counts["mesh_deepq"] = c = read_counts()
+            require(train_iters == 97 and c["stratified_sample"] == train_iters
+                    and c["take_rows"] == 5 * train_iters,
+                    f"deepq under the mesh launched {c}, expected {train_iters} samplers and "
+                    f"{5 * train_iters} gathers")
+            check_params(model.policy.module, "deepq under the mesh")
+            require(model.state.t == steps, f"deepq under the mesh ran to t {model.state.t}")
+            print(f"main path 6c [{card}]: prioritized deepq mlp on CartPole-v1 under the "
+                  f"mesh, launches {c}; {train_iters} training iterations; {steps} env steps "
+                  f"in {elapsed:.2f} s with set-up", flush=True)
+
+            # d. a2c under the mesh, at the classic-control defaults (8 envs x 5 steps),
+            # after the same run without it, whose time splits off the collectives' cost
+            steps = 20000
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[])
+            start = time.perf_counter()
+            a2c.learn(env_id="CartPole-v1", network="mlp", num_envs=8, nsteps=5,
+                      total_timesteps=steps, seed=0, log_interval=100)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - start
+            logger.reset()
+            recorder = RecordingOutput()
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+            reset_counts()
+            start = time.perf_counter()
+            with count_collectives() as calls:
+                model = a2c.learn(env_id="CartPole-v1", network="mlp", num_envs=8, nsteps=5,
+                                  total_timesteps=steps, seed=0, log_interval=100, mesh=mesh)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            a2c_calls = calls[0]
+            require(a2c_calls == 2 * 500 + 6, f"a2c under the mesh made {a2c_calls} "
+                    "collectives in 500 updates, 6 of them logged; expected 1006")
+            logger.reset()
+            counts["mesh_a2c"] = c = read_counts()
+            check_params(model.policy.module, "a2c under the mesh")
+            require(model.state.update_idx == steps // 40 and recorder.rows and all(
+                math.isfinite(r["policy_loss"]) for r in recorder.rows),
+                "a2c under the mesh: wrong update count or losses not finite")
+            print(f"main path 6d [{card}]: a2c mlp on CartPole-v1 under the mesh, launches "
+                  f"{c}, {a2c_calls} NCCL calls; {model.state.update_idx} updates, {steps} env steps in {elapsed:.2f} s "
+                  f"= {steps / elapsed:.0f} env-steps/s (set-up included; without the mesh "
+                  f"{plain_s:.2f} s = {steps / plain_s:.0f}); eprewmean "
+                  f"{[round(r['eprewmean'], 2) for r in recorder.rows]}", flush=True)
+            del model
+        finally:
+            torch.distributed.destroy_process_group()
+
+        # e. two NCCL ranks, one a card
+        if torch.cuda.device_count() >= 2:
+            start = time.perf_counter()
+            outs = dryrun_multichip(2)
+            print(f"main path 6e [{card}]: dryrun_multichip(2) over NCCL in "
+                  f"{time.perf_counter() - start:.2f} s:\n{''.join(outs)}", flush=True)
+        else:
+            print(f"main path 6e [{card}]: dryrun_multichip(2) did not run: this machine has "
+                  f"{torch.cuda.device_count()} card and NCCL puts no two ranks on one GPU; "
+                  "the two-rank math is held by the CPU gloo tests", flush=True)
 
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}

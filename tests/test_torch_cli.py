@@ -201,6 +201,7 @@ def _report(out: str) -> str:
 @pytest.mark.parametrize("alg,extra", [
     ("ppo2", ["--num_timesteps=2048", "--nsteps=64", "--num_env=8"]),
     ("deepq", ["--num_timesteps=1024", "--learning_starts=256", "--chunk_size=64"]),
+    ("a2c", ["--num_timesteps=2000"]),
 ])
 def test_run_save_load_play_round_trip(tmp_path, capsys, alg, extra):
     """``run.main`` on CartPole-v1 with ``--device=cpu``: train, ``--save_path`` and
@@ -252,19 +253,22 @@ def test_run_without_device_needs_a_card(tmp_path):
 
 
 def test_algorithm_registry():
-    """ppo2/ppo, ppo1 and deepq/dqn resolve to the port's learners; every other algorithm
-    the JAX package knows raises NotImplementedError naming its item; an unknown name
-    raises ValueError, as the JAX registry does."""
+    """ppo2/ppo, ppo1, a2c and deepq/dqn resolve to the port's learners, with the JAX
+    package's defaults for each env type; every other algorithm the JAX package knows
+    raises NotImplementedError naming its item; an unknown name raises ValueError, as the
+    JAX registry does."""
     from baselines_tpu import algos as jax_algos
+    from baselines_tpu_torch.algos.a2c import a2c
     from baselines_tpu_torch.algos.ppo1 import ppo1
 
     assert algos.get_learn_function("ppo2") is algos.get_learn_function("ppo") is ppo.learn
     assert algos.get_learn_function("ppo1") is ppo1.learn
+    assert algos.get_learn_function("a2c") is a2c.learn
     assert algos.get_learn_function("deepq") is algos.get_learn_function("dqn") is dqn.learn
     assert algos.get_defaults("ppo2", "classic_control")["nsteps"] == 128
     assert algos.get_defaults("ppo1", "mujoco")["value_network"] == "copy"
     assert algos.get_defaults("deepq", "classic_control") == {"gamma": 0.99, "train_freq": 1}
-    for alg, item in (("a2c", "item 6"), ("trpo_mpi", "item 7"), ("acer", "item 7")):
+    for alg, item in (("her", "item 7"), ("trpo_mpi", "item 7"), ("acer", "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             algos.get_learn_function(alg)
     for alg in jax_algos.algo_names():
@@ -275,7 +279,7 @@ def test_algorithm_registry():
         algos.get_learn_function("sac")
     with pytest.raises(NotImplementedError, match="item 7"):
         run.main(["--alg=ddpg", "--env=CartPole-v1", "--device=cpu", "--num_timesteps=0"])
-    for alg in ("ppo2", "ppo1"):
+    for alg in ("ppo2", "ppo1", "a2c"):
         for env_type in ("atari", "mujoco", "classic_control", "robotics", "testing"):
             want = jax_algos.get_defaults(alg, env_type)
             got = algos.get_defaults(alg, env_type)

@@ -328,9 +328,10 @@ def test_learn_runs_on_the_cpu_and_logs_the_jax_keys(tmp_path, prioritized):
     assert model.state.n_target_syncs == 13
     assert isinstance(model.state.replay.buffer if prioritized else model.state.replay,
                       ReplayState)
-    for option in (dict(param_noise=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, **option))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, param_noise=True))
+    with pytest.raises(TypeError, match="Mesh"):
+        dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, mesh=object()))
 
 
 @pytest.mark.parametrize("option", ["checkpoint_path", "load_path"])

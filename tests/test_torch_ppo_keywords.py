@@ -6,8 +6,9 @@ The two options ``clip_value=False`` (ppo1's plain value MSE) and ``adv_norm="ba
 JAX update with the same draws, as tests/test_torch_update.py does for the defaults;
 ``value_network="copy"`` and ``microbatch_size`` run here and are held to the JAX update
 in tests/test_torch_ppo_variants.py; ``save_interval`` and ``load_path`` write and read
-checkpoints. ``pipeline`` and ``mesh`` raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them, instead of falling into the network's keywords.
+checkpoints. ``pipeline`` raises ``NotImplementedError`` naming the ROADMAP.md item
+that brings it, and ``mesh`` a ``TypeError`` for what is not a ``Mesh``, instead of
+falling into the network's keywords (tests/test_torch_mesh*.py run the mesh).
 
 Each option must also change the update on these inputs, so that the comparison with
 JAX can tell a port that honours it from one that ignores it: ``clip_value=False``
@@ -87,11 +88,13 @@ def test_checkpoint_keyword_works(tmp_path, option):
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"pipeline": True}, "item 8"),
-    ({"mesh": object()}, "item 5"),
+    ({"mesh": object()}, "Mesh"),
 ])
 def test_unported_keyword_raises_not_implemented(kwargs, item):
-    """Raised before any env or network is built, naming the Queue 1 item."""
-    with pytest.raises(NotImplementedError, match=item):
+    """Raised before any env or network is built: ``pipeline`` names its Queue 1 item;
+    ``mesh``, ported, takes only a ``Mesh`` and raises TypeError for anything else."""
+    error = TypeError if "mesh" in kwargs else NotImplementedError
+    with pytest.raises(error, match=item):
         learn(env_id="AtariSim-v0", total_timesteps=0, device="cpu", **kwargs)
 
 

@@ -190,7 +190,7 @@ def test_vec_normalize_matches_jax():
 def test_normalize_state_helpers():
     """find_normalize_state walks the wrapper states to the NormalizeState (None without
     one); replace_normalize_stats swaps its statistics and leaves a chain without one as
-    it is; a non-None axis_name raises, naming item 5."""
+    it is; an axis_name that is not a mesh raises TypeError."""
     venv = tvec.VecFrameStack(tvec.VecNormalize(tvec.VecMonitor(
         tvec.VecTorchEnv(SimpleDeterministicEnv(), 2, "cpu"))), 2)
     _, state = venv.reset(None)
@@ -206,7 +206,7 @@ def test_normalize_state_helpers():
     assert tvec.find_normalize_state(same) is None and same.stats is plain.stats
     for make in (lambda: tvec.VecNormalize(venv, axis_name="batch"),
                  lambda: ob.update(torch.zeros((4, 3)), axis_name="batch")):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(TypeError, match="Mesh"):
             make()
 
 

@@ -36,41 +36,11 @@ from baselines_tpu_torch.algos.common import ClipAdam, build_env
 from baselines_tpu_torch.algos.ppo.ppo import PPOTrainState, make_update_fn
 from baselines_tpu_torch.core.schedules import resolve_fraction_schedule
 from baselines_tpu_torch.nn.policy import build_policy
+from torch_dist_worker import ReplayDraws
 
 # the suite runs in several worker processes at once; one torch thread each keeps them
 # from oversubscribing the cores
 torch.set_num_threads(1)
-
-
-class ReplayDraws:
-    """Serves the port recorded draws, in the order it asks for them."""
-
-    def __init__(self):
-        self.queue = []
-
-    def push(self, kind: str, values) -> None:
-        self.queue.append((kind, np.asarray(values)))
-
-    def _pop(self, kind: str, shape) -> np.ndarray:
-        assert self.queue, f"the port asked for more draws than were recorded ({kind})"
-        got_kind, values = self.queue.pop(0)
-        assert got_kind == kind and values.shape == tuple(shape), (
-            f"the port asked for {kind} {tuple(shape)}, the next draw is {got_kind} "
-            f"{values.shape}"
-        )
-        return values
-
-    def uniform(self, shape, low, high):
-        return torch.from_numpy(self._pop("uniform", shape).astype(np.float32))
-
-    def randint(self, low, high, shape):
-        return torch.from_numpy(self._pop("randint", shape).astype(np.int32))
-
-    def normal(self, shape):
-        return torch.from_numpy(self._pop("normal", shape).astype(np.float32))
-
-    def permutation(self, n):
-        return torch.from_numpy(self._pop("permutation", (n,)).astype(np.int64))
 
 
 _BATCHED_RESETS = {}
