@@ -1,9 +1,9 @@
 """Shared learner scaffolding (counterpart of baselines_tpu/algos/common.py).
 
 - ``build_env``: env id -> the JAX package's wrapper chain for a device env
-  ([ClipActions] -> VecTorchEnv -> VecMonitor -> [VecRewardScale] -> [VecNormalize] ->
-  [VecFrameStack] -> [VecS2D]), the monitor and the normalization across the ranks of a
-  mesh ``axis_name``.
+  ([ClipActions] -> VecTorchEnv -> [VecFlattenDictObs] -> VecMonitor -> [VecRewardScale]
+  -> [VecNormalize] -> [VecFrameStack] -> [VecS2D]), the monitor and the normalization
+  across the ranks of a mesh ``axis_name``.
 - ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
   returns a time-major trajectory and, for a recurrent policy, the carry.
@@ -30,14 +30,14 @@ import torch
 
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core.device import resolve_device
-from baselines_tpu_torch.core.math import explained_variance
+from baselines_tpu_torch.core.math import explained_variance, global_norm
 from baselines_tpu_torch.distributed.collectives import all_gather_rows, merged_moments, pmean
 from baselines_tpu_torch.distributed.mesh import barrier, gather_state, shard_state
 from baselines_tpu_torch.envs.base import ClipActions
 from baselines_tpu_torch.envs.registry import get_env_type, make_env
-from baselines_tpu_torch.envs.spaces import Box
-from baselines_tpu_torch.envs.vec import (VecFrameStack, VecMonitor, VecNormalize,
-                                          VecRewardScale, VecS2D, VecTorchEnv,
+from baselines_tpu_torch.envs.spaces import Box, DictSpace
+from baselines_tpu_torch.envs.vec import (VecFlattenDictObs, VecFrameStack, VecMonitor,
+                                          VecNormalize, VecRewardScale, VecS2D, VecTorchEnv,
                                           find_normalize_state, replace_normalize_stats)
 
 
@@ -50,17 +50,23 @@ def not_ported(algo: str, option: str, where: str):
 
 def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = None,
               reward_scale: float = 1.0, frame_stack: int = 0, s2d: int = 0,
-              axis_name=None):
+              axis_name=None, keep_dict_obs: bool = False):
     """The device env's chain of common.py:84-187: ClipActions on a ``Box`` action
-    space, VecTorchEnv, VecMonitor, VecRewardScale when ``reward_scale`` != 1 (outside
-    the monitor, whose statistics stay raw), VecNormalize when ``normalize`` (None:
-    only for mujoco envs), VecFrameStack when ``frame_stack`` > 1, VecS2D when
-    ``s2d``. Under a mesh ``axis_name``, ``num_envs`` is the rank's envs, and the
-    monitor and the normalization take every rank's."""
+    space, VecTorchEnv, VecFlattenDictObs on dict observations unless ``keep_dict_obs``
+    (her reads the dicts; the other learners see observation ++ desired_goal, as the
+    JAX package's host goal envs give them, common.py:72-80), VecMonitor,
+    VecRewardScale when ``reward_scale`` != 1 (outside the monitor, whose statistics stay
+    raw), VecNormalize when ``normalize`` (None: only for mujoco envs), VecFrameStack
+    when ``frame_stack`` > 1, VecS2D when ``s2d``. Under a mesh ``axis_name``,
+    ``num_envs`` is the rank's envs, and the monitor and the normalization take every
+    rank's."""
     env = make_env(env_id)
     if isinstance(env.action_space, Box):
         env = ClipActions(env)
-    venv = VecMonitor(VecTorchEnv(env, num_envs, device), axis_name=axis_name)
+    venv = VecTorchEnv(env, num_envs, device)
+    if not keep_dict_obs and isinstance(venv.observation_space, DictSpace):
+        venv = VecFlattenDictObs(venv)
+    venv = VecMonitor(venv, axis_name=axis_name)
     if reward_scale != 1.0:
         venv = VecRewardScale(venv, reward_scale)
     if normalize is None:
@@ -229,6 +235,14 @@ class Model:
         return self
 
 
+def polyak_update(target, source, tau: float) -> None:
+    """target = (1 - tau) target + tau source, parameter by parameter, in place
+    (ddpg_learner.py:36-47, 149-153; her's polyak is 1 - tau)."""
+    with torch.no_grad():
+        for t, p in zip(target.parameters(), source.parameters()):
+            t.copy_((1 - tau) * t + tau * p)
+
+
 def save_from_rank0(path: str, tree, mesh) -> None:
     """``ckpt.save_state`` by rank 0 of ``mesh`` alone (by the one process without a
     mesh); the other ranks wait until the file is written."""
@@ -287,7 +301,7 @@ def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool 
     policy starts from the zero carry and is masked where an env was done before the
     step. When the model trained on a normalized env and ``venv`` is normalized too, its
     VecNormalize starts from the trained statistics, so the reset's observations are
-    already normalized by them."""
+    already normalized by them. A goal policy (her's) steps on dict observations."""
     policy = model.policy
     trained = model._normalize_state()
     if trained is not None:
@@ -300,7 +314,7 @@ def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool 
     obs, env_state = venv.reset(draws)
     recurrent = getattr(policy, "is_recurrent", False)  # deepq's QPolicy has no carry
     rnn_state = policy.initial_state(venv.num_envs) if recurrent else None
-    done = torch.zeros((venv.num_envs,), dtype=torch.bool, device=obs.device)
+    done = torch.zeros((venv.num_envs,), dtype=torch.bool, device=venv.device)
     for _ in range(nsteps):
         if recurrent:
             mask = done.to(torch.float32)
@@ -335,7 +349,7 @@ class _ClipOptimizer:
             grads = pmean(grads, self.mesh)
         if self.max_grad_norm is None:
             return list(grads)
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        g_norm = global_norm(grads)
         trigger = g_norm < self.max_grad_norm
         return [torch.where(trigger, g, g / g_norm * self.max_grad_norm) for g in grads]
 
@@ -367,13 +381,25 @@ class ClipAdam(_ClipOptimizer):
         grads = self._clipped(grads)
         self.count += 1
         f32 = torch.float32
-        bc1 = 1 - torch.tensor(self.b1, dtype=f32) ** self.count
-        bc2 = 1 - torch.tensor(self.b2, dtype=f32) ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            u = (mu / bc1.to(p.device)) / (torch.sqrt(nu / bc2.to(p.device)) + self.eps)
-            p.sub_(lr * u)
+        # the bias corrections in f32 on the host, as plain numbers: no copy to the card
+        bc1 = float(1 - torch.tensor(self.b1, dtype=f32) ** self.count)
+        bc2 = float(1 - torch.tensor(self.b2, dtype=f32) ** self.count)
+        # one op over every parameter at a time, each the f32 arithmetic of
+        # mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,
+        # p -= lr (mu / bc1) / (sqrt(nu / bc2) + eps)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - self.b2)
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(self.nu, sq)
+        u = torch._foreach_div(self.mu, bc1)
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(u, denom)
+        torch._foreach_mul_(u, lr)
+        torch._foreach_sub_(self.params, u)
 
 
 class ClipRMSProp(_ClipOptimizer):

@@ -47,9 +47,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
-                                              not_ported, save_from_rank0)
+                                              save_from_rank0)
+from baselines_tpu_torch.algos.ddpg.noise import add_perturbation, draw_perturbation
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.math import huber_loss
@@ -161,10 +163,11 @@ class QPolicy:
 @dataclass
 class DQNTrainState:
     """What an iteration carries to the next; the online params live in the policy's
-    module and the Adam moments in the optimizer. Under a mesh ``env_state`` and
-    ``obs`` are the rank's envs'; the rest is replicated."""
+    module and the Adam moments in the optimizer. With ``param_noise`` the perturbed
+    net acts and its noise scale adapts. Under a mesh ``env_state`` and ``obs`` are the
+    rank's envs'; the rest is replicated."""
 
-    replicated_fields: ClassVar = ("target", "replay")
+    replicated_fields: ClassVar = ("target", "replay", "perturbed", "param_noise_scale")
 
     target: QNet
     env_state: Any
@@ -172,6 +175,8 @@ class DQNTrainState:
     replay: Any
     t: int = 0  # total env steps so far
     n_target_syncs: int = 0
+    perturbed: QNet | None = None
+    param_noise_scale: torch.Tensor | None = None
 
 
 def td_loss(policy: QPolicy, target: QNet, batch: dict, weights: torch.Tensor, *,
@@ -193,17 +198,46 @@ def td_loss(policy: QPolicy, target: QNet, batch: dict, weights: torch.Tensor, *
     return torch.mean(weights * huber_loss(td)), td
 
 
+def adapt_and_perturb(policy: QPolicy, perturbed: QNet, scale: torch.Tensor, obs: torch.Tensor,
+                      eps: float, draws) -> torch.Tensor:
+    """deepq's parameter noise (dqn.py:296-320, Plappert et al. App. C.1): a test
+    perturbation of the online params at ``scale``; the scale grown by 1.01 where the
+    mean KL of the greedy softmax over ``obs`` stays under the epsilon-equivalent
+    threshold -log(1 - eps + eps / n), else shrunk by it; then ``perturbed`` set in place
+    to the params perturbed by the same noise at the new scale. Returns the new scale."""
+    with torch.no_grad():
+        params = {k: p.detach() for k, p in policy.module.named_parameters()}
+        noise = draw_perturbation(draws, params)
+        test = add_perturbation(params, noise, scale)
+        x = encode_observation(policy.ob_space, obs)
+        p_ref = torch.softmax(policy.module(x), dim=-1)
+        p_pert = torch.softmax(functional_call(policy.module, test, (x,)), dim=-1)
+        kl = torch.mean(torch.sum(
+            p_ref * (torch.log(p_ref + 1e-8) - torch.log(p_pert + 1e-8)), dim=-1))
+        eps = np.float32(eps)
+        threshold = float(-np.log(np.float32(1.0) - eps + eps / np.float32(policy.n_actions)))
+        scale = torch.where(kl < threshold, scale * 1.01, scale / 1.01)
+        for name, p in perturbed.named_parameters():
+            p.copy_(params[name] + scale * noise[name] if name in noise else params[name])
+    return scale
+
+
 def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, batch_size: int,
                       learning_starts: int, train_freq: int, gamma: float,
                       target_network_update_freq: int, prioritized_replay: bool,
                       prioritized_replay_eps: float, double_q: bool,
-                      exploration: LinearSchedule, beta_schedule: LinearSchedule, mesh=None):
+                      exploration: LinearSchedule, beta_schedule: LinearSchedule, mesh=None,
+                      param_noise: bool = False):
     """One deepq iteration (dqn.py:229-344): ``iteration(state, draws) -> (state,
     info)``. It acts, steps the envs, adds the transitions, trains when ``t >=
     learning_starts`` and ``t % train_freq < nenvs``, and copies the params to the
     target net when ``t // target_network_update_freq`` passes the syncs made. ``info``
     holds the sampled ``idx``, ``td`` and ``loss`` of a training iteration, else is
     empty. Draws are taken in this order: the act step's, the env step's, the sample's.
+    With ``param_noise`` the perturbed net acts greedily (its draws taken as
+    epsilon-greedy's), and where any env's episode ended the noise scale adapts and the
+    net is perturbed anew (``adapt_and_perturb``, on the observations before the step),
+    its draws taken last.
 
     With a ``mesh``, ``venv`` holds the rank's envs, ``draws`` is a ``ShardedDraws``
     whose ``replicated`` draws take the sample, the transitions of every rank are added
@@ -213,7 +247,11 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
 
     def iteration(state: DQNTrainState, draws):
         eps = float(exploration.value(state.t))
-        action = policy.eps_greedy(state.obs, draws, eps)
+        if param_noise:  # greedy in the perturbed net (deepq.py:265-277)
+            perturbed = QPolicy(state.perturbed, policy.ob_space, policy.n_actions)
+            action = perturbed.eps_greedy(state.obs, draws, 0.0)
+        else:
+            action = policy.eps_greedy(state.obs, draws, eps)
         nobs, env_state, rew, done, step_info = venv.step(draws, state.env_state, action)
         transition = {
             "obs": state.obs,
@@ -228,8 +266,8 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
         t = state.t + nenvs
 
         info = {}
+        sample_draws = draws if mesh is None else draws.replicated
         if t >= learning_starts and t % train_freq < nenvs:
-            sample_draws = draws if mesh is None else draws.replicated
             if prioritized_replay:
                 beta = float(beta_schedule.value(t))
                 batch, idx, weights = rb.sample(replay, sample_draws, batch_size, beta)
@@ -245,6 +283,12 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
                 replay = rb.update_priorities(replay, idx, td.abs() + prioritized_replay_eps)
             info = {"idx": idx, "td": td, "loss": loss.detach()}
 
+        scale = state.param_noise_scale
+        # re-perturbed whenever an episode ends (the reset keyword's semantics)
+        if param_noise and bool(transition["done"].any()):
+            scale = adapt_and_perturb(policy, state.perturbed, scale, transition["obs"], eps,
+                                      sample_draws)
+
         n_target_syncs = state.n_target_syncs
         want_syncs = t // target_network_update_freq
         if want_syncs > n_target_syncs:
@@ -253,7 +297,8 @@ def make_iteration_fn(policy: QPolicy, venv, rb, opt: ClipAdam, *, lr: float, ba
                     tp.copy_(p)
             n_target_syncs = want_syncs
         new_state = DQNTrainState(target=state.target, env_state=env_state, obs=nobs,
-                                  replay=replay, t=t, n_target_syncs=n_target_syncs)
+                                  replay=replay, t=t, n_target_syncs=n_target_syncs,
+                                  perturbed=state.perturbed, param_noise_scale=scale)
         return new_state, info
 
     return iteration
@@ -310,8 +355,6 @@ def learn(
     wrapper gives them; the remaining keywords go to the network
     (for example ``dtype=torch.bfloat16``). ``chunk_timing``, when a list, gets the
     wall time after each chunk, the device synchronized."""
-    if param_noise:
-        not_ported("deepq", "param_noise", "item 7 (its perturbation comes with ddpg)")
     check_mesh(mesh, "deepq's mesh")
     device = learner_device(mesh, device)
     if seed is None:
@@ -352,11 +395,15 @@ def learn(
     }
     state = DQNTrainState(target=copy.deepcopy(qnet), env_state=env_state, obs=obs,
                           replay=rb.init(sample_item))
+    if param_noise:
+        state = replace(state, perturbed=copy.deepcopy(qnet),
+                        param_noise_scale=torch.tensor(0.01, dtype=torch.float32, device=device))
     iteration = make_iteration_fn(
         policy, venv, rb, opt, lr=lr, batch_size=batch_size, learning_starts=learning_starts,
         train_freq=train_freq, gamma=gamma, target_network_update_freq=target_network_update_freq,
         prioritized_replay=prioritized_replay, prioritized_replay_eps=prioritized_replay_eps,
         double_q=double_q, exploration=exploration, beta_schedule=beta_schedule, mesh=mesh,
+        param_noise=param_noise,
     )
 
     model = Model(policy, state, opt, draws, mesh)
@@ -368,8 +415,11 @@ def learn(
     ckpt_marker = -1
 
     def train_fields(s: DQNTrainState) -> dict:
-        return {"params": qnet, "target_params": s.target, "opt": opt, "t": s.t,
-                "n_target_syncs": s.n_target_syncs}
+        fields = {"params": qnet, "target_params": s.target, "opt": opt, "t": s.t,
+                  "n_target_syncs": s.n_target_syncs}
+        if param_noise:
+            fields.update(perturbed_params=s.perturbed, param_noise_scale=s.param_noise_scale)
+        return fields
 
     def restore_fields(s: DQNTrainState, path: str, with_progress: bool) -> DQNTrainState:
         tree = ckpt.load_state(path, map_location=device)
@@ -381,7 +431,8 @@ def learn(
                 fields.pop(k)
         fields = ckpt.from_tree(tree, fields)
         return replace(s, t=fields.get("t", s.t),
-                       n_target_syncs=fields.get("n_target_syncs", s.n_target_syncs))
+                       n_target_syncs=fields.get("n_target_syncs", s.n_target_syncs),
+                       param_noise_scale=fields.get("param_noise_scale", s.param_noise_scale))
 
     if checkpoint_path is not None:
         latest_file = osp.join(checkpoint_path, "latest")

@@ -1,0 +1,316 @@
+"""TRPO, the natural-gradient trust region (counterpart of
+baselines_tpu/algos/trpo/trpo.py, after baselines/trpo_mpi/trpo_mpi.py:89-392).
+
+An iteration is a rollout, GAE, then the policy step and the value fit:
+
+- the surrogate E[ratio * A] with the advantages standardized over the batch (the root
+  of the variance, as ``jnp.std`` takes it), plus ``ent_coef`` times the entropy;
+- the Fisher-vector product as the Hessian of the mean KL to the rollout's policy times
+  a vector, on every ``fvp_subsample``-th sample, plus ``cg_damping`` times the vector:
+  the KL's gradient is taken once with its graph kept, and each product is the gradient
+  of its dot with the vector (a double backward; the JAX package takes the same product
+  forward over reverse);
+- ``cg_iters`` trips of conjugate gradient (``core/cg.py``), the step scaled to
+  sqrt(2 max_kl / s^T H s);
+- the backtracking line search over ten halvings, taking the first probe whose gain
+  improved and whose KL is within 1.5 max_kl. The JAX package evaluates all ten probes
+  and takes the first that passes; the port stops at that probe, which gives the same
+  step. When none passes the params stay, ``improve`` is 0 and ``meankl`` is probe 0's;
+- the separate value tower (``value_network="copy"``) fit by ``vf_iters`` epochs of
+  Adam on 64-sample minibatches, each epoch a fresh permutation whose gathers go through
+  the row-gather kernel (``ops/gather.py``), the last ``nbatch % 64`` samples dropped.
+
+The policy's parameters are ``POLICY_KEYS`` (the latent network, ``pi`` and a Gaussian's
+``logstd``); the value tower and ``vf`` are the rest (``split_params``).
+
+Checkpoints as trpo.py:280-316: ``save_interval`` writes the whole train state to
+``<log dir>/checkpoints/<iter:05d>`` and a run with ``save_interval`` and a log dir
+resumes from the latest; an explicit ``load_path`` loads params only and wins over that
+resume.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
+                                              not_ported, run_rollout)
+from baselines_tpu_torch.core import logger
+from baselines_tpu_torch.core.cg import cg
+from baselines_tpu_torch.core.checkpoint import latest_checkpoint, periodic_path
+from baselines_tpu_torch.core.math import explained_variance, flatten_tree, unflatten_like
+from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.data.gae import gae
+from baselines_tpu_torch.envs.vec import VecMonitor
+from baselines_tpu_torch.nn.policy import build_policy, encode_observation
+from baselines_tpu_torch.ops.gather import take_rows
+
+POLICY_KEYS = ("network", "pi", "logstd")  # against the value tower: value_network, vf
+VF_MINIBATCH = 64
+
+
+def split_params(module: nn.Module) -> tuple[dict, dict]:
+    """(policy params, value params) of a PolicyValueNet by name, each a dict in the
+    module's order (trpo.py:42-46)."""
+    pol, vf = {}, {}
+    for name, p in module.named_parameters():
+        (pol if name.split(".")[0] in POLICY_KEYS else vf)[name] = p
+    return pol, vf
+
+
+def merge_params(pol: dict, vf: dict) -> dict:
+    """trpo.py:49-50: one dict of both."""
+    return {**pol, **vf}
+
+
+def cg_solve(hvp, b: torch.Tensor, cg_iters: int, residual_tol: float = 1e-10) -> torch.Tensor:
+    """Conjugate gradient (common/cg.py:2-34; implementation in core/cg.py)."""
+    return cg(hvp, b, cg_iters, residual_tol)
+
+
+class _PolicyHead(nn.Module):
+    """The distribution's flat parameters of a PolicyValueNet, without its value tower,
+    so that ``functional_call`` can run them on given policy params."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.m = module
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.m.pd_head(self.m.network(encode_observation(self.m.ob_space, obs)))
+
+
+def fisher_vector_product(policy, theta: dict, ob: torch.Tensor, old_pdflat: torch.Tensor,
+                          cg_damping: float):
+    """``hvp(v)``: the Hessian of the mean KL from the distributions ``old_pdflat`` to
+    the policy at ``theta`` (policy params by name) on ``ob``, times the flat ``v``, plus
+    ``cg_damping * v`` (trpo.py:167-181). The KL's gradient is taken once with its graph;
+    each call is one backward of its dot with ``v``."""
+    head = _PolicyHead(policy.module)
+    pdtype = policy.pdtype
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in theta.items()}
+    pdflat = functional_call(head, {f"m.{k}": v for k, v in leaves.items()}, (ob,))
+    kl = torch.mean(pdtype.pdfromflat(old_pdflat).kl(pdtype.pdfromflat(pdflat)))
+    kl_grad = flatten_tree(torch.autograd.grad(kl, list(leaves.values()), create_graph=True))
+
+    def hvp(v: torch.Tensor) -> torch.Tensor:
+        with torch.enable_grad():
+            hv = torch.autograd.grad(torch.dot(kl_grad, v), list(leaves.values()),
+                                     retain_graph=True)
+        return flatten_tree(hv) + cg_damping * v
+
+    return hvp
+
+
+@dataclass
+class TRPOTrainState:
+    """What an iteration carries to the next; the params live in the policy's module and
+    the value tower's Adam moments in the optimizer."""
+
+    env_state: Any
+    obs: torch.Tensor
+    last_done: torch.Tensor
+    iters: int = 0
+
+
+def _flat01(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def make_update_fn(policy, venv, vf_opt: ClipAdam, *, nsteps: int, max_kl: float,
+                   cg_iters: int, gamma: float, lam: float, ent_coef: float,
+                   cg_damping: float, vf_stepsize: float, vf_iters: int,
+                   fvp_subsample: int = 5):
+    """One TRPO iteration (trpo.py:134-262): ``update_fn(state, draws) -> (state,
+    metrics)``. The rollout takes its draws first, then each value epoch one
+    permutation."""
+    module = policy.module
+    head = _PolicyHead(module)
+    pdtype = policy.pdtype
+    pol_params, vf_params = split_params(module)
+    vf_list = list(vf_params.values())
+    nbatch = venv.num_envs * nsteps
+    nmb = max(nbatch // VF_MINIBATCH, 1)
+
+    def pdflat_at(flat_params: dict, ob: torch.Tensor) -> torch.Tensor:
+        return functional_call(head, {f"m.{k}": v for k, v in flat_params.items()}, (ob,))
+
+    def update_fn(state: TRPOTrainState, draws):
+        env_state, obs, last_done, traj, last_value, _ = run_rollout(
+            policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps)
+        advs, tdlamret = gae(traj.rewards, traj.values, traj.dones, last_value, gamma, lam)
+        ob, ac = _flat01(traj.obs), _flat01(traj.actions)
+        ret, old_neglogp = _flat01(tdlamret), _flat01(traj.neglogps)
+        atarg = _flat01(advs)
+        atarg = (atarg - atarg.mean()) / (torch.sqrt(atarg.var(correction=0)) + 1e-8)
+
+        with torch.no_grad():
+            old_pdflat = head(ob)
+        old_pd = pdtype.pdfromflat(old_pdflat)
+        theta = {k: p.detach() for k, p in pol_params.items()}
+
+        def losses(pp: dict):
+            pd = pdtype.pdfromflat(pdflat_at(pp, ob))
+            ratio = torch.exp(old_neglogp - pd.neglogp(ac))
+            surrgain = torch.mean(ratio * atarg)
+            meankl = torch.mean(old_pd.kl(pd))
+            meanent = torch.mean(pd.entropy())
+            return surrgain + ent_coef * meanent, surrgain, meankl, meanent
+
+        leaves = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+        gain0, surr0, _, ent0 = losses(leaves)
+        g = flatten_tree(torch.autograd.grad(gain0, list(leaves.values())))
+
+        # the Fisher-vector product on a subsample (trpo_mpi.py:307-311)
+        hvp = fisher_vector_product(policy, theta, ob[::fvp_subsample],
+                                    old_pdflat[::fvp_subsample], cg_damping)
+
+        with torch.no_grad():
+            stepdir = cg_solve(hvp, g.detach(), cg_iters)
+            shs = 0.5 * torch.dot(stepdir, hvp(stepdir))
+            lm = torch.sqrt(torch.clamp(shs / max_kl, min=1e-12))
+            fullstep = stepdir / lm
+            expectedimprove = torch.dot(g, fullstep)
+            th_before = flatten_tree(theta)
+
+            # backtracking line search (trpo_mpi.py:330-350)
+            th_final, improve, meankl, success = th_before, None, None, False
+            for k in range(10):
+                th_new = th_before + fullstep * np.float32(0.5) ** k
+                gain, _, kl, _ = losses(unflatten_like(th_new, theta))
+                step_improve = gain - gain0.detach()
+                if meankl is None:
+                    meankl = kl  # logged where no probe passes (argmax of all-False is 0)
+                if bool(torch.isfinite(gain) & (step_improve > 0) & (kl <= max_kl * 1.5)):
+                    th_final, improve, meankl, success = th_new, step_improve, kl, True
+                    break
+            for p, new in zip(pol_params.values(), unflatten_like(th_final, theta).values()):
+                p.copy_(new)
+
+        # the value fit: vf_iters epochs of Adam on 64-sample minibatches
+        # (trpo_mpi.py:358-364)
+        for _ in range(vf_iters):
+            perm = draws.permutation(nbatch)
+            ob_sh, ret_sh = take_rows(ob, perm), take_rows(ret, perm)
+            for i in range(nmb):
+                rows = slice(i * VF_MINIBATCH, (i + 1) * VF_MINIBATCH)
+                x = encode_observation(module.ob_space, ob_sh[rows])
+                vpred = module.vf(module.value_network(x))[..., 0]
+                loss = torch.mean(torch.square(vpred - ret_sh[rows]))
+                vf_opt.step(torch.autograd.grad(loss, vf_list), vf_stepsize)
+
+        metrics = {
+            "optimgain": gain0.detach(),
+            "meankl": meankl,
+            "entropy": ent0.detach(),
+            "surrgain": surr0.detach(),
+            "expectedimprove": expectedimprove,
+            "improve": improve if success else torch.zeros_like(expectedimprove),
+            "linesearch_success": torch.tensor(float(success), device=g.device),
+            "ev_tdlam_before": explained_variance(_flat01(traj.values), ret),
+        }
+        new_state = TRPOTrainState(env_state=env_state, obs=obs, last_done=last_done,
+                                   iters=state.iters + 1)
+        return new_state, metrics
+
+    return update_fn
+
+
+def learn(
+    *,
+    env=None,
+    env_id: str | None = None,
+    network: str = "mlp",
+    total_timesteps: int,
+    seed: int | None = None,
+    num_envs: int = 1,
+    env_kwargs: dict | None = None,
+    timesteps_per_batch: int = 1024,
+    max_kl: float = 0.001,
+    cg_iters: int = 10,
+    gamma: float = 0.99,
+    lam: float = 1.0,
+    ent_coef: float = 0.0,
+    cg_damping: float = 1e-2,
+    vf_stepsize: float = 3e-4,
+    vf_iters: int = 3,
+    fvp_subsample: int = 5,
+    log_interval: int = 1,
+    save_interval: int = 0,
+    load_path: str | None = None,
+    normalize_observations: bool = False,
+    mesh=None,
+    device=None,
+    **network_kwargs,
+) -> Model:
+    """trpo_mpi.learn (trpo_mpi.py:89-145 signature and defaults), logging the keys of
+    trpo.py:318-333. ``timesteps_per_batch`` is an iteration's samples over all
+    ``num_envs`` envs. ``normalize_observations`` puts the env behind VecNormalize,
+    whose statistics are saved with the model (the reference normalizes inside the
+    policy). ``device`` is the card unless the caller passes ``"cpu"``; the remaining
+    keywords go to the network (for example ``dtype=torch.bfloat16``)."""
+    if mesh is not None:
+        not_ported("trpo", "mesh", "item 7 (trpo under a mesh)")
+    device = learner_device(None, device)
+    if seed is None:
+        seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
+    env_kwargs = dict(env_kwargs or {})
+    if env is None and normalize_observations:
+        env_kwargs.setdefault("normalize", True)
+    venv = env if env is not None else build_env(env_id, num_envs, device=device, **env_kwargs)
+    nsteps = max(timesteps_per_batch // venv.num_envs, 1)
+    nbatch = nsteps * venv.num_envs
+    niters = max(total_timesteps // nbatch, 1) if total_timesteps > 0 else 0
+
+    init_gen = torch.Generator().manual_seed(seed)
+    policy = build_policy(venv.observation_space, venv.action_space, network, device=device,
+                          generator=init_gen, value_network="copy", **network_kwargs)
+    if policy.is_recurrent:
+        raise ValueError("recurrent policies are not supported by trpo, as in the reference")
+    vf_opt = ClipAdam(split_params(policy.module)[1].values(), None, eps=1e-8)
+    draws = Draws(seed, device)
+    obs, env_state = venv.reset(draws)
+    state = TRPOTrainState(env_state=env_state, obs=obs,
+                           last_done=torch.zeros((venv.num_envs,), dtype=torch.bool,
+                                                 device=device))
+    update_fn = make_update_fn(policy, venv, vf_opt, nsteps=nsteps, max_kl=max_kl,
+                               cg_iters=cg_iters, gamma=gamma, lam=lam, ent_coef=ent_coef,
+                               cg_damping=cg_damping, vf_stepsize=vf_stepsize,
+                               vf_iters=vf_iters, fvp_subsample=fvp_subsample)
+
+    model = Model(policy, state, vf_opt, draws)
+    if load_path is not None:
+        model.load(load_path)
+    start_it = 0
+    if save_interval and logger.get_dir() and load_path is None:
+        latest = latest_checkpoint(logger.get_dir())
+        if latest is not None:
+            state = model.load_full(latest).state
+            start_it = state.iters
+            logger.log(f"Resuming from checkpoint {latest} (iter {start_it})")
+
+    tstart = time.time()
+    for it in range(start_it + 1, niters + 1):
+        state, metrics = update_fn(state, draws)
+        model.state = state
+        if save_interval and (it % save_interval == 0 or it == 1) and logger.get_dir():
+            model.save_full(periodic_path(logger.get_dir(), it))
+        if log_interval and (it % log_interval == 0 or it == 1):
+            stats = VecMonitor.get_stats(state.env_state)
+            logger.logkv("iters", it)
+            logger.logkv("timesteps", it * nbatch)
+            logger.logkv("EpRewMean", float(stats.mean_return))
+            logger.logkv("EpLenMean", float(stats.mean_length))
+            logger.logkv("fps", int(it * nbatch / (time.time() - tstart)))
+            for k, v in metrics.items():
+                logger.logkv(k, float(v))
+            logger.dumpkvs()
+    model.state = state
+    return model

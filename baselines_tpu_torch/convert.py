@@ -12,9 +12,12 @@
   module maps to the module of its own dotted path: ``network.mlp_fc0``,
   ``network._ImpalaResBlock_3.Conv_1``, ``network.encoder.c1``, ``network.lstm.wx``,
   ``value_network.mlp_fc0`` (a policy built with ``value_network="copy"``), ``pi``,
-  ``vf``, and the QNet streams of deepq (algos/dqn/dqn.py:54-81). The ``pi`` layer's
-  width is the distribution's: the action count, the sum of a MultiDiscrete's counts,
-  or the Gaussian's dimension.
+  ``vf``, the QNet streams of deepq (algos/dqn/dqn.py:54-81), ddpg's ``Actor`` (``network``,
+  ``pi``) and ``Critic`` (``network``, ``output``), her's ``GoalActor`` and ``GoalCritic``
+  of the same names, and ``network.LayerNorm_{i}`` where the MLP has layer norms. The
+  ``pi`` layer's width is the distribution's: the action count, the sum of a
+  MultiDiscrete's counts, or the Gaussian's dimension; trpo's policy is a PolicyValueNet
+  with its ``value_network`` tower.
 """
 
 from __future__ import annotations
@@ -67,10 +70,11 @@ def network_state_dict(params: Mapping) -> dict:
     module of the same tree: a network's ({'mlp_fc0': ..., 'LayerNorm_0': ...}; {'c1':
     ..., 'fc1': ...}; {'encoder': {...}, 'lstm': {'wx': ..., 'b': ...}}), a
     PolicyValueNet's ({'network': ..., 'pi': ..., 'vf': ...}, with 'value_network' for
-    a separate value tower and 'logstd' for a Gaussian head) or a QNet's ({'network':
-    ..., 'action_value_fc0': ..., ...})."""
+    a separate value tower and 'logstd' for a Gaussian head), a QNet's ({'network':
+    ..., 'action_value_fc0': ..., ...}), an actor's ({'network': ..., 'pi': ...}) or a
+    critic's ({'network': ..., 'output': ...})."""
     return _tree("", params.get("params", params))
 
 
 # the same mapping, under the names of the module each tree belongs to
-policy_state_dict = q_state_dict = network_state_dict
+policy_state_dict = q_state_dict = actor_state_dict = critic_state_dict = network_state_dict

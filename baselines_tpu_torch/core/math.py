@@ -19,3 +19,42 @@ def huber_loss(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     abs_x = torch.abs(x)
     quad = torch.clamp(abs_x, max=delta)
     return 0.5 * quad * quad + delta * (abs_x - quad)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a list, tuple or dict of tensors, in its order (a dict's in key
+    order as inserted)."""
+    if isinstance(tree, dict):
+        return list(tree.values())
+    return list(tree)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The L2 norm over every tensor of ``tree``, in f32 (math.py:48-53,
+    tf.global_norm)."""
+    leaves = _leaves(tree)
+    if not leaves:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+
+
+def flatten_tree(tree) -> torch.Tensor:
+    """Every tensor of ``tree`` raveled and concatenated into one f32 vector, in the
+    tree's order (math.py:56-60, tf_util's GetFlat/flatgrad)."""
+    return torch.cat([x.reshape(-1).to(torch.float32) for x in _leaves(tree)])
+
+
+def unflatten_like(vec: torch.Tensor, tree):
+    """The inverse of ``flatten_tree``: ``vec`` cut into the shapes and dtypes of
+    ``tree``'s tensors, in the same structure (math.py:63-72, SetFromFlat)."""
+    leaves = _leaves(tree)
+    total = sum(x.numel() for x in leaves)
+    if total != vec.numel():
+        raise ValueError(f"a vector of {vec.numel()} values for a tree of {total}")
+    out, i = [], 0
+    for x in leaves:
+        out.append(vec[i:i + x.numel()].reshape(x.shape).to(x.dtype))
+        i += x.numel()
+    if isinstance(tree, dict):
+        return dict(zip(tree.keys(), out))
+    return type(tree)(out) if isinstance(tree, tuple) else out

@@ -4,8 +4,8 @@ Registered, all stepped on the device: the classic envs ``CartPole-v0``/``-v1``,
 ``Pendulum-v1``, ``MountainCar-v0``, ``MountainCarContinuous-v0`` and ``Acrobot-v1``;
 the fixture envs ``DiscreteIdentity-v0``, ``BoxIdentity-v0``,
 ``MultiDiscreteIdentity-v0``, ``ImageIdentity-v0``, ``ImageIdentity36-v0``,
-``FixedSequence-v0`` and ``ImageFixedSequence-v0``; and ``AtariSim-v0``. The goal env
-``PointReach-v0`` and the ids the JAX package serves through its host bridge (gymnasium
+``FixedSequence-v0`` and ``ImageFixedSequence-v0``; ``AtariSim-v0``; and the goal env
+``PointReach-v0``. The ids the JAX package serves through its host bridge (gymnasium
 ids, ``native:`` ids) raise ``NotImplementedError`` naming the item of ROADMAP.md's
 Queue 1 that brings them.
 """
@@ -20,6 +20,7 @@ from baselines_tpu_torch.envs.classic.cartpole import make_cartpole
 from baselines_tpu_torch.envs.classic.mountain_car import (make_mountain_car,
                                                            make_mountain_car_continuous)
 from baselines_tpu_torch.envs.classic.pendulum import make_pendulum
+from baselines_tpu_torch.envs.goal.point_reach import make_point_reach
 from baselines_tpu_torch.envs.testing.atari_sim import AtariSim
 from baselines_tpu_torch.envs.testing.fixed_sequence import (FixedSequenceEnv,
                                                              ImageFixedSequenceEnv)
@@ -44,10 +45,8 @@ _ENVS: dict[str, tuple[Callable[[], TorchEnv], str]] = {
     # seed 3 draws an all-distinct action sequence (registry.py:97-99)
     "ImageFixedSequence-v0": (lambda: ImageFixedSequenceEnv(seed=3), "testing"),
     "AtariSim-v0": (lambda: AtariSim(), "testing"),
+    "PointReach-v0": (make_point_reach, "robotics"),
 }
-
-# the JAX package's other device env, and the Queue 1 item that ports it
-_NOT_PORTED = {"PointReach-v0": ("item 7 (her and the goal envs)", "robotics")}
 
 
 def env_names():
@@ -66,8 +65,6 @@ def get_env_type(env_id: str) -> str:
         env_id = env_id.split(":", 1)[1]
     if env_id in _ENVS:
         return _ENVS[env_id][1]
-    if env_id in _NOT_PORTED:
-        return _NOT_PORTED[env_id][1]
     lid = env_id.lower()
     if "noframeskip" in lid or "ale/" in lid:
         return "atari"
@@ -84,6 +81,6 @@ def make_env(env_id: str) -> TorchEnv:
     """Instantiate a batched device env by id."""
     if env_id in _ENVS:
         return _ENVS[env_id][0]()
-    item = _NOT_PORTED.get(env_id, ("item 8 (the host env bridge)",))[0]
-    raise NotImplementedError(f"env {env_id!r} is not ported yet; it comes with {item} of "
+    raise NotImplementedError(f"env {env_id!r} is not ported yet; it comes with item 8 (the "
+                              "host env bridge) of "
                               f"ROADMAP.md's Queue 1. The port has {env_names()}")

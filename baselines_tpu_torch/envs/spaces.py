@@ -1,6 +1,6 @@
 """Observation and action spaces (counterpart of baselines_tpu/envs/spaces.py):
-``Discrete``, ``Box``, ``MultiDiscrete`` and ``MultiBinary``. ``DictSpace`` comes with
-item 7 of ROADMAP.md's Queue 1 (her and the goal envs)."""
+``Discrete``, ``Box``, ``MultiDiscrete``, ``MultiBinary`` and the goal envs'
+``DictSpace``."""
 
 from __future__ import annotations
 
@@ -90,6 +90,25 @@ class MultiBinary(Space):
 
     def __repr__(self):
         return f"MultiBinary({self.n})"
+
+
+class DictSpace(Space):
+    """Named sub-spaces, the goal envs' {observation, achieved_goal, desired_goal}
+    contract (spaces.py:120-140, gym.GoalEnv); an observation is a dict of tensors."""
+
+    def __init__(self, spaces: dict):
+        self.spaces = dict(spaces)
+        self.shape = None
+        self.dtype = None
+
+    def contains(self, x) -> bool:
+        return all(k in x and s.contains(x[k]) for k, s in self.spaces.items())
+
+    def __getitem__(self, k):
+        return self.spaces[k]
+
+    def __repr__(self):
+        return f"DictSpace({list(self.spaces)})"
 
 
 def torch_dtype(dtype) -> torch.dtype:

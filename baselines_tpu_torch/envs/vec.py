@@ -7,14 +7,14 @@ Auto-reset matches the subprocess workers of the reference (subproc_vec_env.py:8
 where an env reports done, the returned obs and state are the reset ones, and the
 terminal observation is ``info['terminal_obs']``.
 
-Ported: ``VecTorchEnv`` (the batch with auto-reset), ``VecWrapper``, ``VecMonitor``
-with its ``EpisodeStats`` ring of the last 100 episodes, ``VecFrameStack``,
-``VecRewardScale``, ``VecNormalize`` with ``find_normalize_state`` and
-``replace_normalize_stats``, and ``VecS2D`` with the packed 3-D layout. Under a
-data-parallel mesh (``axis_name``), VecMonitor's ring (after ``VecMonitor.sync_stats``)
-and VecNormalize's statistics are those of every rank's envs, held alike by every rank.
-The dict-obs wrappers come with item 7 of ROADMAP.md's Queue 1, and the pipelined env
-pair's branch of the normalize helpers with item 8.
+Ported: ``VecTorchEnv`` (the batch with auto-reset, of tensor or dict observations),
+``VecWrapper``, ``VecMonitor`` with its ``EpisodeStats`` ring of the last 100 episodes,
+``VecFrameStack``, ``VecRewardScale``, ``VecNormalize`` with ``find_normalize_state``
+and ``replace_normalize_stats``, ``VecS2D`` with the packed 3-D layout, and the dict-obs
+wrappers ``VecExtractDictObs`` and ``VecFlattenDictObs``. Under a data-parallel mesh
+(``axis_name``), VecMonitor's ring (after ``VecMonitor.sync_stats``) and VecNormalize's
+statistics are those of every rank's envs, held alike by every rank. The pipelined env
+pair's branch of the normalize helpers comes with item 8 of ROADMAP.md's Queue 1.
 """
 
 from __future__ import annotations
@@ -38,6 +38,13 @@ EPISODE_BUFFER = 100  # matches deque(maxlen=100) of epinfos, ppo2/ppo2.py:118
 def _where_done(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a where done else b, with done broadcast over the trailing dims."""
     return torch.where(done.view(done.shape + (1,) * (a.dim() - done.dim())), a, b)
+
+
+def _select_obs(done, a, b):
+    """a where done else b, key by key for dict observations."""
+    if isinstance(a, dict):
+        return {k: _where_done(done, a[k], b[k]) for k in a}
+    return _where_done(done, a, b)
 
 
 def _select_state(done, reset_state, state):
@@ -203,7 +210,7 @@ class VecTorchEnv:
         info = dict(info)
         info["terminal_obs"] = obs
         robs, rst = self.env.reset(draws, self.num_envs, self.device)
-        new_obs = _where_done(done, robs, obs)
+        new_obs = _select_obs(done, robs, obs)
         new_state = _select_state(done, rst, st)
         return new_obs, new_state, rew.to(torch.float32), done, info
 
@@ -364,6 +371,53 @@ class VecRewardScale(VecWrapper):
 
     def post(self, state, obs, inner, rew, done, info):
         return obs, inner, rew * self.scale, done, info
+
+
+class VecExtractDictObs(VecWrapper):
+    """Dict observations projected to one key (vec_env/vec_remove_dict_obs.py:3-10)."""
+
+    def __init__(self, venv, key: str):
+        super().__init__(venv)
+        self.key = key
+        self.observation_space = venv.observation_space[key]
+
+    def reset(self, draws):
+        obs, state = self.venv.reset(draws)
+        return obs[self.key], state
+
+    def post(self, state, obs, inner, rew, done, info):
+        if "terminal_obs" in info:
+            info = dict(info, terminal_obs=info["terminal_obs"][self.key])
+        return obs[self.key], inner, rew, done, info
+
+
+class VecFlattenDictObs(VecWrapper):
+    """Chosen keys of dict observations concatenated into one flat Box, the
+    FlattenDictWrapper(['observation', 'desired_goal']) of make_robotics_env
+    (cmd_util.py:124-135), with which the learners other than her train on goal envs
+    (vec.py:330-350)."""
+
+    def __init__(self, venv, keys=("observation", "desired_goal")):
+        super().__init__(venv)
+        self.keys = tuple(keys)
+        spaces = [venv.observation_space[k] for k in self.keys]
+        if not all(len(sp.shape) == 1 for sp in spaces):
+            raise ValueError("VecFlattenDictObs needs 1-D parts")
+        dim = sum(sp.shape[0] for sp in spaces)
+        self.observation_space = Box(np.full((dim,), -np.inf, np.float32),
+                                     np.full((dim,), np.inf, np.float32), (dim,), np.float32)
+
+    def _flat(self, obs: dict) -> torch.Tensor:
+        return torch.cat([obs[k] for k in self.keys], dim=-1)
+
+    def reset(self, draws):
+        obs, state = self.venv.reset(draws)
+        return self._flat(obs), state
+
+    def post(self, state, obs, inner, rew, done, info):
+        if "terminal_obs" in info:
+            info = dict(info, terminal_obs=self._flat(info["terminal_obs"]))
+        return self._flat(obs), inner, rew, done, info
 
 
 @dataclass

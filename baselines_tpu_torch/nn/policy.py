@@ -92,13 +92,17 @@ class PolicyValueNet(nn.Module):
             self.logstd = nn.Parameter(torch.zeros((1, width)))
         self.vf = _ortho(nn.Linear(network.latent_size, 1), 1.0, generator)
 
-    def heads(self, latent: torch.Tensor, vlatent: torch.Tensor | None = None):
-        """(flat distribution parameters, value) from the f32 latent, the value from the
-        value tower's latent ``vlatent`` where there is one."""
+    def pd_head(self, latent: torch.Tensor) -> torch.Tensor:
+        """The flat distribution parameters from the f32 latent."""
         pdflat = self.pi(latent)
         if self.gaussian:
             pdflat = torch.cat([pdflat, self.logstd.expand_as(pdflat)], dim=-1)
-        return pdflat, self.vf(latent if vlatent is None else vlatent)[..., 0]
+        return pdflat
+
+    def heads(self, latent: torch.Tensor, vlatent: torch.Tensor | None = None):
+        """(flat distribution parameters, value) from the f32 latent, the value from the
+        value tower's latent ``vlatent`` where there is one."""
+        return self.pd_head(latent), self.vf(latent if vlatent is None else vlatent)[..., 0]
 
     def forward(self, obs: torch.Tensor, rnn_state: torch.Tensor | None = None,
                 rnn_mask: torch.Tensor | None = None):

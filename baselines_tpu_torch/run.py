@@ -104,7 +104,8 @@ def main(argv=None):
         venv = build_env(args.env, 1, device=device,
                          normalize=model._normalize_state() is not None,
                          frame_stack=int(extra_args.get("frame_stack", 0) or 0),
-                         s2d=int(extra_args.get("s2d", 0) or 0))
+                         s2d=int(extra_args.get("s2d", 0) or 0),
+                         keep_dict_obs=args.alg == "her")  # goal policies read dict obs
         ret, length, episodes = evaluate(model, venv, Draws(0, device), nsteps=PLAY_STEPS,
                                          deterministic=True)
         logger.log(f"episode_rew mean={ret} len={length} episodes={episodes}")

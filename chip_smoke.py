@@ -86,6 +86,28 @@ Phases, each printing its seconds:
         logs, env-steps/s;
      e. dryrun_multichip(2) over NCCL where the machine has two cards or more; with one
         card it says why it did not run (NCCL puts no two ranks on one GPU).
+  12. main path 7, trpo, ddpg with deepq's param_noise, and her:
+     a. trpo at trpo/defaults.py atari() with cnn_s2d in bf16 on AtariSim-v0, 16 envs x 32
+        steps, 4 iterations: finite metrics with linesearch_success, >= 128 fused CNN and
+        24 gather launches (2 fields x 3 value epochs an iteration);
+     b. trpo with mlp on CartPole-v1 through run.main at the classic-control defaults,
+        50 iterations of 1024 steps, saved and played: 10 gathers an iteration, a
+        deterministic return >= 150 over 600 steps of 8 envs, the --load_path round trip
+        bit for bit;
+     c. ddpg through run.main on Pendulum-v1 at its classic-control defaults, one epoch of
+        20 cycles x (100 steps, 50 train steps), saved and played: 5 gathers a train
+        step, finite losses, the --load_path round trip bit for bit (actor, critic,
+        targets, obs_rms, ret_rms) with the same play report; ddpg with adaptive-param_0.2
+        and layer norms on BoxIdentity-v0 (a finite, adapted param_noise_stddev) and
+        deepq with param_noise on CartPole-v1 for 1280 steps (a finite, adapted
+        param_noise_scale);
+     d. her through run.main on PointReach-v0 (16 envs, 10 cycles, 40 batches of 256,
+        3 x 256 relu, 200000 steps), saved and played on dict observations: 6 gathers a
+        train step, a deterministic success over 0.5 on 64 episodes, the --load_path round
+        trip bit for bit with the same play report;
+     e. the gather on 64 rows of ddpg's (10^6, 3) f32 ring and on 256 of her's flattened
+        (510000, 2) f32 obs rows, bit for bit, timed in turns against index_select.
+  Every sub-phase prints its seconds, env-steps/s (set-up included) and peak memory.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits nonzero. It exits nonzero before building anything
@@ -1415,12 +1437,259 @@ def main() -> int:
                   f"{torch.cuda.device_count()} card and NCCL puts no two ranks on one GPU; "
                   "the two-rank math is held by the CPU gloo tests", flush=True)
 
+    with Phase("main path 7: trpo, ddpg with deepq's param_noise, and her"):
+        from baselines_tpu_torch.algos.ddpg import ddpg
+        from baselines_tpu_torch.algos.trpo import trpo
+        from baselines_tpu_torch.algos.trpo.defaults import atari as trpo_atari_defaults
+        from baselines_tpu_torch.envs.goal.point_reach import PointReach
+
+        def begin():
+            """Counts to 0, the peak memory statistics reset; the start time."""
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            return time.perf_counter()
+
+        def peak_gib() -> str:
+            return f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+        def same_params(a, b) -> bool:
+            sa, sb = a.state_dict(), b.state_dict()
+            return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+        def same_rms(a, b) -> bool:
+            return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("mean", "var", "count"))
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_slice7_")
+        try:
+            # a. trpo on AtariSim-v0 at trpo/defaults.py atari(), cnn_s2d in bf16 for the
+            # Nature cnn (as path 2 runs deepq), 16 envs x 32 steps, 4 iterations
+            hp = dict(trpo_atari_defaults(), network="cnn_s2d")
+            recorder = RecordingOutput()
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+            start = begin()
+            trpo.learn(env_id="AtariSim-v0", dtype=torch.bfloat16, env_kwargs={"s2d": 4},
+                       num_envs=16, total_timesteps=4 * 512, seed=0, log_interval=1, **hp)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            logger.reset()
+            counts["trpo_atari"] = c = read_counts()
+            require(c["fused_cnn"] >= 4 * 32 and c["take_rows"] == 4 * 3 * 2,
+                    f"trpo on AtariSim launched {c}, expected >= 128 fused_cnn and 24 take_rows")
+            require(len(recorder.rows) == 4 and all(
+                math.isfinite(r[k]) for r in recorder.rows for k in (
+                    "optimgain", "meankl", "entropy", "surrgain", "expectedimprove", "improve",
+                    "linesearch_success", "ev_tdlam_before")),
+                "trpo on AtariSim: a logged metric is missing or not finite")
+            print(f"main path 7a [{card}]: trpo cnn_s2d bf16 on AtariSim-v0, 16 x 32, 4 "
+                  f"iterations, launches {c}; {elapsed:.2f} s for 2048 env steps = "
+                  f"{2048 / elapsed:.0f} env-steps/s (set-up included); linesearch_success "
+                  f"{[r['linesearch_success'] for r in recorder.rows]}, meankl "
+                  f"{[round(r['meankl'], 6) for r in recorder.rows]}; {peak_gib()}", flush=True)
+
+            # b. trpo with mlp on CartPole-v1 through run.main at the classic-control
+            # defaults (tests/test_trpo_learning.py:37-55's run), 50 iterations of its
+            # 1024 steps where the test runs 146, so that the phase keeps to its time:
+            # the return it checks is reached by then; saved, and the file back through
+            # --load_path
+            steps = 50 * 1024
+            path = os.path.join(tmp, "trpo.pt")
+            argv = ["--alg=trpo_mpi", "--env=CartPole-v1", "--seed=0", "--play"]
+            start = begin()
+            model_b, out_b = run_cli(argv + [f"--num_timesteps={steps}", f"--save_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'trpo')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_trpo"] = c = read_counts()
+            iters = steps // 1024
+            require(c["take_rows"] == iters * 5 * 2, f"trpo on CartPole launched {c}, "
+                    f"expected {iters * 10} take_rows (2 fields x 5 value epochs an iteration)")
+            ret, length, episodes = evaluate(model_b, build_env("CartPole-v1", 8, device=dev),
+                                             Draws(1, dev), nsteps=600)
+            require(ret >= 150, f"trpo on CartPole: deterministic return {ret}, want >= 150")
+            model_l, out_l = run_cli(argv + ["--num_timesteps=0", f"--load_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'trpo_l')}"])
+            require(same_params(model_b.policy.module, model_l.policy.module),
+                    "trpo: the loaded params differ from the saved ones")
+            require(play_report(out_l) == play_report(out_b),
+                    f"trpo: play after load {play_report(out_l)}, after training "
+                    f"{play_report(out_b)}")
+            print(f"main path 7b [{card}]: trpo mlp on CartPole-v1 through run.main, {iters} "
+                  f"iterations of 8 x 128, launches {c}; {elapsed:.2f} s with save and play = "
+                  f"{iters * 1024 / elapsed:.0f} env-steps/s (set-up included); deterministic "
+                  f"return {ret} (len {length}, {episodes} episodes of 8 envs x 600 steps); "
+                  f"the load round trip bit for bit, {play_report(out_l)}; {peak_gib()}",
+                  flush=True)
+            del model_b, model_l
+
+            # c. ddpg through run.main on Pendulum-v1 at its classic-control defaults (4
+            # envs, ou_0.2, actor_lr 1e-3, batch 64): one epoch of 20 cycles x (100
+            # steps, 50 train steps), saved, played, and the file back through --load_path
+            path = os.path.join(tmp, "ddpg.pt")
+            argv = ["--alg=ddpg", "--env=Pendulum-v1", "--seed=0", "--play"]
+            start = begin()
+            model_c, out_c = run_cli(argv + ["--num_timesteps=8000", f"--save_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'ddpg')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_ddpg"] = c = read_counts()
+            require(c["take_rows"] == 5 * 20 * 50, f"ddpg launched {c}, expected 5000 "
+                    "take_rows (5 fields a train step, 1000 train steps)")
+            with open(os.path.join(tmp, "ddpg", "progress.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            require(len(rows) == 1 and all(math.isfinite(float(rows[0][k])) for k in (
+                "train/loss_actor", "train/loss_critic")), "ddpg: logged losses not finite")
+            model_l, out_l = run_cli(argv + ["--num_timesteps=0", f"--load_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'ddpg_l')}"])
+            trees = model_c._ckpt_tree(), model_l._ckpt_tree()
+            require(all(same_params(trees[0][k], trees[1][k]) for k in (
+                "actor", "critic", "target_actor", "target_critic"))
+                and same_rms(trees[0]["obs_rms"], trees[1]["obs_rms"])
+                and same_rms(trees[0]["ret_rms"], trees[1]["ret_rms"]),
+                "ddpg: the loaded model differs from the saved one")
+            require(play_report(out_l) == play_report(out_c),
+                    f"ddpg: play after load {play_report(out_l)}, after training "
+                    f"{play_report(out_c)}")
+            print(f"main path 7c [{card}]: ddpg on Pendulum-v1 through run.main, 8000 env "
+                  f"steps and 1000 train steps, launches {c}; {elapsed:.2f} s with save and "
+                  f"play = {8000 / elapsed:.0f} env-steps/s (set-up included); losses actor "
+                  f"{float(rows[0]['train/loss_actor']):.4f}, critic "
+                  f"{float(rows[0]['train/loss_critic']):.4f}; return history "
+                  f"{float(rows[0]['rollout/return_history']):.1f}; the load round trip bit for "
+                  f"bit (obs_rms count {float(trees[1]['obs_rms'].count):.0f}), "
+                  f"{play_report(out_l)}; {peak_gib()}", flush=True)
+            del model_c, model_l, trees
+
+            # parameter noise: ddpg with adaptive-param_0.2 and layer norms on
+            # BoxIdentity-v0 (the testing defaults), then deepq with param_noise
+            recorder = RecordingOutput()
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+            start = begin()
+            model = ddpg.learn(env_id="BoxIdentity-v0", num_envs=4, gamma=0.9, layer_norm=True,
+                               noise_type="adaptive-param_0.2", nb_epoch_cycles=4,
+                               total_timesteps=1600, seed=0)
+            torch.cuda.synchronize()
+            ddpg_s = time.perf_counter() - start
+            logger.reset()
+            counts["ddpg_param_noise"] = c_pn = read_counts()
+            ddpg_peak = peak_gib()
+            stddev = float(model.state.param_noise_stddev)
+            require(math.isfinite(stddev) and stddev != 0.2 and len(recorder.rows) == 1
+                    and math.isfinite(recorder.rows[0]["param_noise_stddev"]),
+                    f"ddpg with parameter noise: stddev {stddev}")
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[])
+            start = begin()
+            model = dqn.learn(env_id="CartPole-v1", param_noise=True, total_timesteps=1280,
+                              gamma=0.99, seed=0, print_freq=0)
+            torch.cuda.synchronize()
+            dqn_s = time.perf_counter() - start
+            logger.reset()
+            counts["deepq_param_noise"] = c_dq = read_counts()
+            scale = float(model.state.param_noise_scale)
+            require(math.isfinite(scale) and scale != 0.01 and c_dq["take_rows"] == 5 * 281,
+                    f"deepq with param_noise: scale {scale}, launches {c_dq}")
+            print(f"main path 7c [{card}]: ddpg adaptive-param_0.2 with layer norms on "
+                  f"BoxIdentity-v0, 1600 steps in {ddpg_s:.2f} s = {1600 / ddpg_s:.0f} "
+                  f"env-steps/s (set-up included), launches {c_pn}, param_noise_stddev "
+                  f"{stddev:.5f}, {ddpg_peak}", flush=True)
+            print(f"main path 7c [{card}]: deepq param_noise on CartPole-v1, 1280 steps in "
+                  f"{dqn_s:.2f} s = {1280 / dqn_s:.0f} env-steps/s (set-up included), launches "
+                  f"{c_dq}, param_noise_scale {scale:.5f}, {peak_gib()}", flush=True)
+            del model
+
+            # d. her on PointReach-v0 through run.main with tests/test_her_learning.py's
+            # configuration (16 envs, 10 cycles, 40 batches of 256, 3 x 256 relu, 200000
+            # steps), saved and played on dict observations, then the file back
+            path = os.path.join(tmp, "her.pt")
+            argv = ["--alg=her", "--env=PointReach-v0", "--seed=0", "--num_env=16",
+                    "--n_cycles=10", "--n_batches=40", "--batch_size=256", "--play"]
+            start = begin()
+            model_d, out_d = run_cli(argv + ["--num_timesteps=200000", f"--save_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'her')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_her"] = c = read_counts()
+            epochs = 200000 // (10 * 16 * 50)
+            require(c["take_rows"] == 6 * epochs * 10 * 40, f"her launched {c}, expected "
+                    f"{6 * epochs * 400} take_rows (6 reads a train step)")
+            env = PointReach()
+            draws = Draws(5, dev)
+            obs, st = env.reset(draws, 64, dev)
+            for _ in range(50):
+                obs, st, _, _, info = env.step(draws, st, model_d.policy.mode_step(obs)[0])
+            success = float(info["is_success"].float().mean())
+            require(success > 0.5, f"her on PointReach: deterministic success {success}")
+            with open(os.path.join(tmp, "her", "progress.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            model_l, out_l = run_cli(argv + ["--num_timesteps=0", f"--load_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'her_l')}"])
+            require(same_params(model_d.policy.module, model_l.policy.module)
+                    and same_rms(model_d.state.o_rms, model_l.state.o_rms)
+                    and same_rms(model_d.state.g_rms, model_l.state.g_rms),
+                    "her: the loaded actor or normalizers differ from the saved ones")
+            require(play_report(out_l) == play_report(out_d),
+                    f"her: play after load {play_report(out_l)}, after training "
+                    f"{play_report(out_d)}")
+            # where a cycle's time goes: one more cycle of the trained model under the
+            # profiler, its device time against its wall time, and the host's top ops
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model_d.cycle(model_d.state, Draws(7, dev))
+                torch.cuda.synchronize()
+                cycle_s = time.perf_counter() - t0
+            events = prof.key_averages()
+            device_ms = sum(getattr(e, "self_device_time_total", 0) for e in events) / 1e3
+            ops = sum(e.count for e in events if e.key.startswith("aten::"))
+            top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+            print(f"main path 7d profile [{card}]: one cycle (16 episodes of 50 steps, 40 "
+                  f"train steps) {cycle_s * 1e3:.1f} ms wall, {device_ms:.1f} ms of device "
+                  f"time ({1 - device_ms / (cycle_s * 1e3):.1%} idle), {ops} aten calls; top "
+                  f"host self times: " + "; ".join(
+                      f"{e.key} x{e.count} {e.self_cpu_time_total / 1e3:.1f} ms" for e in top),
+                  flush=True)
+            print(f"main path 7d [{card}]: her on PointReach-v0 through run.main, {epochs} "
+                  f"epochs of 10 cycles x (16 episodes of 50 steps, 40 train steps), launches "
+                  f"{c}; {elapsed:.2f} s with save and play = {200000 / elapsed:.0f} "
+                  f"env-steps/s (set-up included); deterministic success {success} over 64 "
+                  f"episodes; test/success_rate by epoch "
+                  f"{[float(r['test/success_rate']) for r in rows]}; the load round trip bit "
+                  f"for bit, {play_report(out_l)}; {peak_gib()}", flush=True)
+            del model_d, model_l
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # e. the gather at this path's new shapes: 64 rows of ddpg's (10^6, 3) f32 ring
+        # (Pendulum's obs), and 256 rows of her's flattened (10000 * 51, 2) f32 obs rows
+        gen = torch.Generator(device=dev).manual_seed(12)
+        path7_shapes = []
+        for rows_n, width, batch, what in ((10**6, 3, 64, "ddpg ring obs"),
+                                           (10000 * 51, 2, 256, "her flattened o rows")):
+            x = torch.randn((rows_n, width), device=dev, generator=gen)
+            idx = torch.randint(0, rows_n, (batch,), device=dev, generator=gen)
+            require(torch.equal(take_rows(x, idx), x[idx]),
+                    f"take_rows on {what} differs from x[idx]")
+            t, readings = turns_ms({"kernel": lambda: take_rows(x, idx),
+                                    "plain": lambda: x[idx],
+                                    "index_select": lambda: x.index_select(0, idx)}, 50,
+                                   rounds=3)
+            bms, by = bound_ms(0, 2 * batch * width * 4 + batch * 8)
+            shape = f"{what}: f32 {tuple(x.shape)} by ({batch},) int64"
+            path7_shapes.append(dict(shape=shape, max_abs_err=0.0, ms=t["kernel"],
+                                     plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                                     library_ms=t["index_select"]))
+            print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, "
+                  f"plain x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} "
+                  f"ms, bound {bms:.6f} ms ({by}); in turns: "
+                  f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+            del x, idx
+        kernels["take_rows"]["path7_shapes"] = path7_shapes
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape")
+             "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape",
+             "path7_shapes")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

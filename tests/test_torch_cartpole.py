@@ -168,17 +168,16 @@ def test_vec_rollout_matches_jax(version):
 
 def test_registry_types_and_unported_ids():
     """Every id has the JAX registry's env type; the port registers every device env of
-    the JAX package but PointReach-v0, which raises NotImplementedError naming item 7, as
-    host ids raise naming item 8."""
+    the JAX package, PointReach-v0 among them, and host ids raise NotImplementedError
+    naming item 8."""
     from baselines_tpu.envs import registry as jax_registry
 
     for env_id in jax_registry.env_names() + ["HalfCheetah-v4", "PongNoFrameskip-v4",
                                               "FetchReach-v2", "native:CartPole-v1"]:
         assert registry.get_env_type(env_id) == jax_registry.get_env_type(env_id), env_id
-    assert registry.is_torch_env("CartPole-v1") and not registry.is_torch_env("PointReach-v0")
-    assert set(registry.env_names()) == set(jax_registry.env_names()) - {"PointReach-v0"}
-    for env_id, item in (("PointReach-v0", "item 7"), ("Pendulum-v0", "item 8"),
-                         ("HalfCheetah-v4", "item 8"),
+    assert registry.is_torch_env("CartPole-v1") and registry.is_torch_env("PointReach-v0")
+    assert set(registry.env_names()) == set(jax_registry.env_names())
+    for env_id, item in (("Pendulum-v0", "item 8"), ("HalfCheetah-v4", "item 8"),
                          ("native:CartPole-v1", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             registry.make_env(env_id)

@@ -253,22 +253,29 @@ def test_run_without_device_needs_a_card(tmp_path):
 
 
 def test_algorithm_registry():
-    """ppo2/ppo, ppo1, a2c and deepq/dqn resolve to the port's learners, with the JAX
-    package's defaults for each env type; every other algorithm the JAX package knows
-    raises NotImplementedError naming its item; an unknown name raises ValueError, as the
-    JAX registry does."""
+    """ppo2/ppo, ppo1, a2c, deepq/dqn, trpo_mpi/trpo, ddpg and her resolve to the port's
+    learners, with the JAX package's defaults for each env type; every other algorithm
+    the JAX package knows raises NotImplementedError naming its item; an unknown name
+    raises ValueError, as the JAX registry does."""
     from baselines_tpu import algos as jax_algos
     from baselines_tpu_torch.algos.a2c import a2c
+    from baselines_tpu_torch.algos.ddpg import ddpg
+    from baselines_tpu_torch.algos.her import her
     from baselines_tpu_torch.algos.ppo1 import ppo1
+    from baselines_tpu_torch.algos.trpo import trpo
 
     assert algos.get_learn_function("ppo2") is algos.get_learn_function("ppo") is ppo.learn
     assert algos.get_learn_function("ppo1") is ppo1.learn
     assert algos.get_learn_function("a2c") is a2c.learn
     assert algos.get_learn_function("deepq") is algos.get_learn_function("dqn") is dqn.learn
+    assert (algos.get_learn_function("trpo_mpi") is algos.get_learn_function("trpo")
+            is trpo.learn)
+    assert algos.get_learn_function("ddpg") is ddpg.learn
+    assert algos.get_learn_function("her") is her.learn
     assert algos.get_defaults("ppo2", "classic_control")["nsteps"] == 128
     assert algos.get_defaults("ppo1", "mujoco")["value_network"] == "copy"
     assert algos.get_defaults("deepq", "classic_control") == {"gamma": 0.99, "train_freq": 1}
-    for alg, item in (("her", "item 7"), ("trpo_mpi", "item 7"), ("acer", "item 7")):
+    for alg, item in (("acktr", "item 7"), ("acer", "item 7"), ("gail", "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             algos.get_learn_function(alg)
     for alg in jax_algos.algo_names():
@@ -278,8 +285,8 @@ def test_algorithm_registry():
     with pytest.raises(ValueError, match="unknown algorithm"):
         algos.get_learn_function("sac")
     with pytest.raises(NotImplementedError, match="item 7"):
-        run.main(["--alg=ddpg", "--env=CartPole-v1", "--device=cpu", "--num_timesteps=0"])
-    for alg in ("ppo2", "ppo1", "a2c"):
+        run.main(["--alg=acktr", "--env=CartPole-v1", "--device=cpu", "--num_timesteps=0"])
+    for alg in ("ppo2", "ppo1", "a2c", "trpo_mpi", "ddpg", "her"):
         for env_type in ("atari", "mujoco", "classic_control", "robotics", "testing"):
             want = jax_algos.get_defaults(alg, env_type)
             got = algos.get_defaults(alg, env_type)

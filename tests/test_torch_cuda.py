@@ -384,3 +384,122 @@ def test_network_on_the_card_matches_the_cpu(dev, name, shape):
                                  masks.to(dev))
     torch.testing.assert_close(seq, torch.cat(steps), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(carry, c_card, rtol=1e-5, atol=1e-6)
+
+
+class _HostDraws:
+    """Draws made on the CPU by one seeded generator and moved to ``device``, so that a
+    run on the card and one on the CPU take the same numbers."""
+
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device = device
+
+    def uniform(self, shape, low, high):
+        return (torch.rand(shape, generator=self.gen) * (high - low) + low).to(self.device)
+
+    def normal(self, shape):
+        return torch.randn(shape, generator=self.gen).to(self.device)
+
+    def randint(self, low, high, shape):
+        return torch.randint(low, high, shape, generator=self.gen,
+                             dtype=torch.int32).to(self.device)
+
+    def permutation(self, n):
+        return torch.randperm(n, generator=self.gen).to(self.device)
+
+
+@pytest.mark.parametrize("network,dtype", [("mlp", torch.float32),
+                                           ("cnn_s2d", torch.bfloat16)])
+def test_trpo_fisher_vector_product_on_the_card_matches_the_cpu(dev, network, dtype):
+    """trpo's double-backward Fisher-vector product on the card against the CPU on the
+    same params, observations and vector: to 1e-4 relative for the f32 mlp; for the bf16
+    cnn_s2d (cuDNN's double backward of the convolutions) finite, to 5e-2 relative."""
+    from baselines_tpu_torch.algos.trpo import trpo
+    from baselines_tpu_torch.envs.spaces import Box, Discrete
+    from baselines_tpu_torch.nn.policy import build_policy
+
+    gen = torch.Generator().manual_seed(3)
+    if network == "mlp":
+        ob_space, ob = Box(-1.0, 1.0, (4,)), torch.randn((256, 4), generator=gen)
+    else:
+        ob_space = Box(0, 255, (21, 21, 64), dtype="uint8")
+        ob = torch.randint(0, 256, (64, 21, 21, 64), generator=gen, dtype=torch.uint8)
+    kw = {} if network == "mlp" else {"dtype": dtype}
+    cpu = build_policy(ob_space, Discrete(6), network, device="cpu", value_network="copy",
+                       generator=torch.Generator().manual_seed(0), **kw)
+    card = build_policy(ob_space, Discrete(6), network, device=dev, value_network="copy", **kw)
+    card.module.load_state_dict(cpu.module.state_dict())
+    out = []
+    for pol, device in ((cpu, "cpu"), (card, dev)):
+        theta = {k: p.detach() for k, p in trpo.split_params(pol.module)[0].items()}
+        with torch.no_grad():
+            old = trpo._PolicyHead(pol.module)(ob.to(device))
+        n = sum(p.numel() for p in theta.values())
+        v = torch.randn((n,), generator=torch.Generator().manual_seed(1)).to(device)
+        out.append(trpo.fisher_vector_product(pol, theta, ob.to(device), old, 1e-3)(v).cpu())
+    assert bool(torch.isfinite(out[1]).all())
+    rel = float((out[1] - out[0]).abs().max() / out[0].abs().max())
+    assert rel < (1e-4 if network == "mlp" else 5e-2), rel
+
+
+def test_ddpg_train_steps_on_the_card_match_the_cpu(dev):
+    """A ddpg cycle (40 rollout steps of 2 Pendulum envs, 5 train steps, OU noise, popart)
+    on the card against the CPU from the same weights and draws: 5 row gathers a train
+    step on the card, and every param to 1e-4 of its change."""
+    from baselines_tpu_torch.algos.ddpg import ddpg
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    import dataclasses
+
+    from baselines_tpu_torch.algos.common import build_env
+
+    kw = dict(nb_epochs=0, nb_rollout_steps=40,
+              nb_train_steps=5, batch_size=16, noise_type="ou_0.2", normalize_returns=True,
+              num_hidden=16, seed=0)
+    runs = []
+    for device in ("cpu", dev):
+        venv = build_env("Pendulum-v1", 2, device=device, normalize=False)
+        model = ddpg.learn(env=venv, device=device, **kw)
+        draws = _HostDraws(7, device)
+        obs, env_state = venv.reset(draws)
+        state = dataclasses.replace(model.state, obs=obs, env_state=env_state)
+        before = take_rows.launches
+        state, losses = model.cycle(state, draws)
+        launches = take_rows.launches - before
+        runs.append((model, launches, losses))
+    (cpu, cpu_launches, _), (card, card_launches, losses) = runs
+    assert cpu_launches == 0 and card_launches == 5 * 5
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    start = ddpg.learn(env=build_env("Pendulum-v1", 2, device="cpu", normalize=False),
+                       device="cpu", **kw)
+    for name, p in card.policy.module.state_dict().items():
+        want = cpu.policy.module.state_dict()[name]
+        base = start.policy.module.state_dict()[name]
+        rel = float((p.cpu() - want).abs().max() / (want - base).abs().max().clamp_min(1e-12))
+        assert rel < 1e-4, (name, rel)
+
+
+def test_take_rows_kernel_on_her_buffer_rows(dev):
+    """The her buffer's six reads a sample on the card: the flat (C * (T + 1), d) and
+    (C * T, d) f32 rows gathered by the kernel, bit for bit the CPU sample from the same
+    draws, 6 launches."""
+    from baselines_tpu_torch.data.her_buffer import HerReplayBuffer
+    from baselines_tpu_torch.envs.goal.point_reach import PointReach
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    gen = torch.Generator().manual_seed(0)
+    eps = [torch.randn((64, 51, 2), generator=gen), torch.randn((64, 51, 2), generator=gen),
+           torch.randn((64, 50, 2), generator=gen), torch.randn((64, 50, 2), generator=gen)]
+    out = []
+    for device in ("cpu", dev):
+        buf = HerReplayBuffer(10000, 50, {"o": 2, "g": 2, "u": 2})
+        state = buf.init(device)
+        draws = _HostDraws(1, device)
+        state = buf.store_episodes(state, draws, *[x.to(device) for x in eps])
+        before = take_rows.launches
+        out.append(buf.sample(state, draws, 256, 4, PointReach().compute_reward))
+        out.append(take_rows.launches - before)
+    cpu, cpu_launches, card, card_launches = out
+    assert cpu_launches == 0 and card_launches == 6
+    for k in cpu:
+        assert torch.equal(card[k].cpu(), cpu[k]), k

@@ -312,7 +312,9 @@ def test_slice_state_matches_jax(slice_runs):
 @pytest.mark.parametrize("prioritized", [True, False], ids=["prioritized", "uniform"])
 def test_learn_runs_on_the_cpu_and_logs_the_jax_keys(tmp_path, prioritized):
     """The entry point at a tiny size, with either buffer: the log keys and cadence of
-    dqn.py:476-490, and the options of later items raise."""
+    dqn.py:476-490; ``param_noise`` builds the perturbed net and its scale (its
+    iterations are held against the JAX learner's in tests/test_torch_ddpg.py), and a
+    mesh that is not a Mesh raises."""
     configure(dir=str(tmp_path), format_strs=["json"])
     try:
         model = dqn.learn(total_timesteps=104, device="cpu", **dict(
@@ -328,8 +330,10 @@ def test_learn_runs_on_the_cpu_and_logs_the_jax_keys(tmp_path, prioritized):
     assert model.state.n_target_syncs == 13
     assert isinstance(model.state.replay.buffer if prioritized else model.state.replay,
                       ReplayState)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, param_noise=True))
+    noisy = dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, param_noise=True))
+    assert float(noisy.state.param_noise_scale) == np.float32(0.01)
+    for p, q in zip(noisy.state.perturbed.parameters(), noisy.policy.module.parameters()):
+        assert torch.equal(p, q)
     with pytest.raises(TypeError, match="Mesh"):
         dqn.learn(total_timesteps=0, device="cpu", **dict(LEARN, mesh=object()))
 

@@ -29,10 +29,15 @@ def test_every_port_module_imports_without_jax():
         " 'baselines_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n"
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 25
+    imported = set(proc.stdout.split())
+    for name in ("core.cg", "algos.trpo.trpo", "algos.ddpg.ddpg", "algos.ddpg.noise",
+                 "algos.her.her", "data.her_buffer", "envs.goal.point_reach"):
+        assert f"baselines_tpu_torch.{name}" in imported, name
 
 
 def test_chip_smoke_without_a_card_exits_nonzero_before_importing_anything():

@@ -250,10 +250,15 @@ def port_vec_env(venv):
 
 def init_params(jmodule_init, seed: int, *args) -> dict:
     """Flax's own init of a module (``jmodule_init(key, *args)``), every leaf then moved
-    by noise (a tenth of the leaf's spread, or 0.1 where the init made it constant), so
-    that biases, the LSTM's ``b`` and the LayerNorms' scales differ from their init
-    constants and a tensor mapped to the wrong place cannot go unseen."""
-    params = jax.jit(jmodule_init)(jax.random.PRNGKey(seed), *args)
+    by noise (``move_params``)."""
+    return move_params(jax.jit(jmodule_init)(jax.random.PRNGKey(seed), *args), seed)
+
+
+def move_params(params, seed: int) -> dict:
+    """Every leaf of ``params`` moved by noise (a tenth of the leaf's spread, or 0.1
+    where the init made it constant), as numpy f32 arrays, so that biases, the LSTM's
+    ``b`` and the LayerNorms' scales differ from their init constants and a tensor mapped
+    to the wrong place cannot go unseen."""
     rng = np.random.RandomState(seed)
 
     def move(x):
@@ -262,6 +267,21 @@ def init_params(jmodule_init, seed: int, *args) -> dict:
         return (x + 0.1 * spread * rng.randn(*x.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map(move, params)
+
+
+def push_perturbation(draws: ReplayDraws, key, params) -> None:
+    """The draws of the JAX package's ``perturb_params(key, params, stddev)``
+    (algos/ddpg/noise.py:88-102): a normal of each perturbable leaf's shape from the
+    key's split over all leaves, in the flattened order, a Dense kernel's transposed to
+    the port's weight layout."""
+    from baselines_tpu.algos.ddpg.noise import is_perturbable
+
+    leaves = jax.tree_util.tree_flatten_with_path(params)[0]
+    for (path, leaf), k in zip(leaves, jax.random.split(key, len(leaves))):
+        if is_perturbable(path):
+            assert leaf.ndim <= 2, "conv kernels are not laid out for the port here"
+            noise = np.asarray(jax.random.normal(k, leaf.shape, leaf.dtype))
+            draws.push("normal", noise.T if noise.ndim == 2 else noise)
 
 
 def one_ppo_update(env_id: str = "AtariSim-v0", env_kwargs=None, *, network: str | None = None,
