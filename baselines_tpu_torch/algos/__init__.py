@@ -1,11 +1,10 @@
 """Algorithm registry (counterpart of baselines_tpu/algos/__init__.py, after
 baselines/run.py:154-167's import-by-name discovery).
 
-``ppo2``/``ppo``, ``ppo1``, ``a2c``, ``deepq``/``dqn``, ``trpo_mpi``/``trpo``, ``ddpg`` and
-``her`` are ported. Every other
-algorithm the JAX package knows raises ``NotImplementedError`` naming the item of
-ROADMAP.md's Queue 1 that brings it; a name the JAX package does not know raises
-``ValueError``.
+Every learner of the JAX package is ported: ``ppo2``/``ppo``, ``ppo1``, ``a2c``,
+``acktr``, ``acer``, ``deepq``/``dqn``, ``trpo_mpi``/``trpo``, ``ddpg``, ``her`` and
+``gail``. A name the JAX package does not know raises ``ValueError``. her and gail have
+no defaults module, as in the JAX package.
 """
 
 from importlib import import_module
@@ -21,8 +20,10 @@ _ALGOS = {
     "trpo": "baselines_tpu_torch.algos.trpo.trpo",
     "ddpg": "baselines_tpu_torch.algos.ddpg.ddpg",
     "her": "baselines_tpu_torch.algos.her.her",
+    "acktr": "baselines_tpu_torch.algos.acktr.acktr",
+    "acer": "baselines_tpu_torch.algos.acer.acer",
+    "gail": "baselines_tpu_torch.algos.gail.gail",
 }
-_NOT_PORTED = {name: "item 7" for name in ("acktr", "acer", "gail")}
 
 
 def algo_names():
@@ -30,12 +31,8 @@ def algo_names():
 
 
 def _module_name(alg: str) -> str:
-    if alg in _NOT_PORTED:
-        raise NotImplementedError(f"{alg} is not ported yet; it comes with {_NOT_PORTED[alg]} "
-                                  "of ROADMAP.md's Queue 1")
     if alg not in _ALGOS:
-        known = sorted(set(_ALGOS) | set(_NOT_PORTED))
-        raise ValueError(f"unknown algorithm {alg!r}; known: {known}")
+        raise ValueError(f"unknown algorithm {alg!r}; known: {algo_names()}")
     return _ALGOS[alg]
 
 
@@ -48,7 +45,7 @@ def get_defaults(alg: str, env_type: str) -> dict:
     name = _module_name(alg).rsplit(".", 1)[0] + ".defaults"
     try:
         mod = import_module(name)
-    except ModuleNotFoundError as e:  # her has none, as in the JAX package
+    except ModuleNotFoundError as e:  # her and gail have none, as in the JAX package
         if e.name != name:
             raise
         return {}

@@ -124,6 +124,94 @@ def _flat01(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
 
 
+def natural_step(policy, ob: torch.Tensor, ac: torch.Tensor, atarg: torch.Tensor,
+                 old_neglogp: torch.Tensor, *, max_kl: float, cg_iters: int, ent_coef: float,
+                 cg_damping: float, fvp_subsample: int):
+    """The policy step of trpo.py:148-200 on a batch: the surrogate's gradient, conjugate
+    gradient on the Fisher-vector product of every ``fvp_subsample``-th sample, and the
+    line search, which moves the policy params of ``policy.module`` (``split_params``)
+    in place. ``ob`` is what the module's encoder takes. Returns the metrics (the gain,
+    surrogate and entropy at the old params, the chosen probe's KL, the expected and
+    the achieved improvement, whether a probe passed) and ``losses(params) -> (gain,
+    surrogate, KL, entropy)`` at given policy params by name."""
+    head = _PolicyHead(policy.module)
+    pdtype = policy.pdtype
+    pol_params = split_params(policy.module)[0]
+    with torch.no_grad():
+        old_pdflat = head(ob)
+    old_pd = pdtype.pdfromflat(old_pdflat)
+    theta = {k: p.detach() for k, p in pol_params.items()}
+
+    def losses(pp: dict):
+        pd = pdtype.pdfromflat(
+            functional_call(head, {f"m.{k}": v for k, v in pp.items()}, (ob,)))
+        ratio = torch.exp(old_neglogp - pd.neglogp(ac))
+        surrgain = torch.mean(ratio * atarg)
+        meankl = torch.mean(old_pd.kl(pd))
+        meanent = torch.mean(pd.entropy())
+        return surrgain + ent_coef * meanent, surrgain, meankl, meanent
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    gain0, surr0, _, ent0 = losses(leaves)
+    g = flatten_tree(torch.autograd.grad(gain0, list(leaves.values())))
+
+    # the Fisher-vector product on a subsample (trpo_mpi.py:307-311)
+    hvp = fisher_vector_product(policy, theta, ob[::fvp_subsample],
+                                old_pdflat[::fvp_subsample], cg_damping)
+
+    with torch.no_grad():
+        stepdir = cg_solve(hvp, g.detach(), cg_iters)
+        shs = 0.5 * torch.dot(stepdir, hvp(stepdir))
+        lm = torch.sqrt(torch.clamp(shs / max_kl, min=1e-12))
+        fullstep = stepdir / lm
+        expectedimprove = torch.dot(g, fullstep)
+        th_before = flatten_tree(theta)
+
+        # backtracking line search (trpo_mpi.py:330-350)
+        th_final, improve, meankl, success = th_before, None, None, False
+        for k in range(10):
+            th_new = th_before + fullstep * np.float32(0.5) ** k
+            gain, _, kl, _ = losses(unflatten_like(th_new, theta))
+            step_improve = gain - gain0.detach()
+            if meankl is None:
+                meankl = kl  # logged where no probe passes (argmax of all-False is 0)
+            if bool(torch.isfinite(gain) & (step_improve > 0) & (kl <= max_kl * 1.5)):
+                th_final, improve, meankl, success = th_new, step_improve, kl, True
+                break
+        for p, new in zip(pol_params.values(), unflatten_like(th_final, theta).values()):
+            p.copy_(new)
+
+    metrics = {
+        "optimgain": gain0.detach(),
+        "meankl": meankl,
+        "entropy": ent0.detach(),
+        "surrgain": surr0.detach(),
+        "expectedimprove": expectedimprove,
+        "improve": improve if success else torch.zeros_like(expectedimprove),
+        "linesearch_success": torch.tensor(float(success), device=g.device),
+    }
+    return metrics, losses
+
+
+def value_fit(module: nn.Module, vf_opt: ClipAdam, ob: torch.Tensor, ret: torch.Tensor,
+              draws, *, vf_iters: int, vf_stepsize: float) -> None:
+    """``vf_iters`` epochs of Adam on the value tower (``split_params``' second half)
+    over 64-sample minibatches (trpo_mpi.py:358-364): each epoch a fresh permutation
+    whose gathers of ``ob`` and ``ret`` go through the row-gather kernel, the last
+    ``len(ob) % 64`` samples dropped. ``ob`` is what the module's encoder takes."""
+    vf_list = list(split_params(module)[1].values())
+    nmb = max(ob.shape[0] // VF_MINIBATCH, 1)
+    for _ in range(vf_iters):
+        perm = draws.permutation(ob.shape[0])
+        ob_sh, ret_sh = take_rows(ob, perm), take_rows(ret, perm)
+        for i in range(nmb):
+            rows = slice(i * VF_MINIBATCH, (i + 1) * VF_MINIBATCH)
+            x = encode_observation(module.ob_space, ob_sh[rows])
+            vpred = module.vf(module.value_network(x))[..., 0]
+            loss = torch.mean(torch.square(vpred - ret_sh[rows]))
+            vf_opt.step(torch.autograd.grad(loss, vf_list), vf_stepsize)
+
+
 def make_update_fn(policy, venv, vf_opt: ClipAdam, *, nsteps: int, max_kl: float,
                    cg_iters: int, gamma: float, lam: float, ent_coef: float,
                    cg_damping: float, vf_stepsize: float, vf_iters: int,
@@ -131,16 +219,6 @@ def make_update_fn(policy, venv, vf_opt: ClipAdam, *, nsteps: int, max_kl: float
     """One TRPO iteration (trpo.py:134-262): ``update_fn(state, draws) -> (state,
     metrics)``. The rollout takes its draws first, then each value epoch one
     permutation."""
-    module = policy.module
-    head = _PolicyHead(module)
-    pdtype = policy.pdtype
-    pol_params, vf_params = split_params(module)
-    vf_list = list(vf_params.values())
-    nbatch = venv.num_envs * nsteps
-    nmb = max(nbatch // VF_MINIBATCH, 1)
-
-    def pdflat_at(flat_params: dict, ob: torch.Tensor) -> torch.Tensor:
-        return functional_call(head, {f"m.{k}": v for k, v in flat_params.items()}, (ob,))
 
     def update_fn(state: TRPOTrainState, draws):
         env_state, obs, last_done, traj, last_value, _ = run_rollout(
@@ -150,72 +228,12 @@ def make_update_fn(policy, venv, vf_opt: ClipAdam, *, nsteps: int, max_kl: float
         ret, old_neglogp = _flat01(tdlamret), _flat01(traj.neglogps)
         atarg = _flat01(advs)
         atarg = (atarg - atarg.mean()) / (torch.sqrt(atarg.var(correction=0)) + 1e-8)
-
-        with torch.no_grad():
-            old_pdflat = head(ob)
-        old_pd = pdtype.pdfromflat(old_pdflat)
-        theta = {k: p.detach() for k, p in pol_params.items()}
-
-        def losses(pp: dict):
-            pd = pdtype.pdfromflat(pdflat_at(pp, ob))
-            ratio = torch.exp(old_neglogp - pd.neglogp(ac))
-            surrgain = torch.mean(ratio * atarg)
-            meankl = torch.mean(old_pd.kl(pd))
-            meanent = torch.mean(pd.entropy())
-            return surrgain + ent_coef * meanent, surrgain, meankl, meanent
-
-        leaves = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
-        gain0, surr0, _, ent0 = losses(leaves)
-        g = flatten_tree(torch.autograd.grad(gain0, list(leaves.values())))
-
-        # the Fisher-vector product on a subsample (trpo_mpi.py:307-311)
-        hvp = fisher_vector_product(policy, theta, ob[::fvp_subsample],
-                                    old_pdflat[::fvp_subsample], cg_damping)
-
-        with torch.no_grad():
-            stepdir = cg_solve(hvp, g.detach(), cg_iters)
-            shs = 0.5 * torch.dot(stepdir, hvp(stepdir))
-            lm = torch.sqrt(torch.clamp(shs / max_kl, min=1e-12))
-            fullstep = stepdir / lm
-            expectedimprove = torch.dot(g, fullstep)
-            th_before = flatten_tree(theta)
-
-            # backtracking line search (trpo_mpi.py:330-350)
-            th_final, improve, meankl, success = th_before, None, None, False
-            for k in range(10):
-                th_new = th_before + fullstep * np.float32(0.5) ** k
-                gain, _, kl, _ = losses(unflatten_like(th_new, theta))
-                step_improve = gain - gain0.detach()
-                if meankl is None:
-                    meankl = kl  # logged where no probe passes (argmax of all-False is 0)
-                if bool(torch.isfinite(gain) & (step_improve > 0) & (kl <= max_kl * 1.5)):
-                    th_final, improve, meankl, success = th_new, step_improve, kl, True
-                    break
-            for p, new in zip(pol_params.values(), unflatten_like(th_final, theta).values()):
-                p.copy_(new)
-
-        # the value fit: vf_iters epochs of Adam on 64-sample minibatches
-        # (trpo_mpi.py:358-364)
-        for _ in range(vf_iters):
-            perm = draws.permutation(nbatch)
-            ob_sh, ret_sh = take_rows(ob, perm), take_rows(ret, perm)
-            for i in range(nmb):
-                rows = slice(i * VF_MINIBATCH, (i + 1) * VF_MINIBATCH)
-                x = encode_observation(module.ob_space, ob_sh[rows])
-                vpred = module.vf(module.value_network(x))[..., 0]
-                loss = torch.mean(torch.square(vpred - ret_sh[rows]))
-                vf_opt.step(torch.autograd.grad(loss, vf_list), vf_stepsize)
-
-        metrics = {
-            "optimgain": gain0.detach(),
-            "meankl": meankl,
-            "entropy": ent0.detach(),
-            "surrgain": surr0.detach(),
-            "expectedimprove": expectedimprove,
-            "improve": improve if success else torch.zeros_like(expectedimprove),
-            "linesearch_success": torch.tensor(float(success), device=g.device),
-            "ev_tdlam_before": explained_variance(_flat01(traj.values), ret),
-        }
+        metrics, _ = natural_step(policy, ob, ac, atarg, old_neglogp, max_kl=max_kl,
+                                  cg_iters=cg_iters, ent_coef=ent_coef,
+                                  cg_damping=cg_damping, fvp_subsample=fvp_subsample)
+        value_fit(policy.module, vf_opt, ob, ret, draws, vf_iters=vf_iters,
+                  vf_stepsize=vf_stepsize)
+        metrics["ev_tdlam_before"] = explained_variance(_flat01(traj.values), ret)
         new_state = TRPOTrainState(env_state=env_state, obs=obs, last_done=last_done,
                                    iters=state.iters + 1)
         return new_state, metrics

@@ -17,7 +17,15 @@
   of the same names, and ``network.LayerNorm_{i}`` where the MLP has layer norms. The
   ``pi`` layer's width is the distribution's: the action count, the sum of a
   MultiDiscrete's counts, or the Gaussian's dimension; trpo's policy is a PolicyValueNet
-  with its ``value_network`` tower.
+  with its ``value_network`` tower, acer's has a ``q`` head in place of ``vf``, and gail's
+  discriminator is ``Dense_0``..``Dense_2``;
+- gail's filtered policy, {"pi": <policy tree>, "ob_rms": <RunningMeanStd>}, to
+  ``pi.<policy>`` and the ``ob_rms_mean``/``_var``/``_count`` buffers
+  (``obs_norm_policy_state_dict``);
+- acktr's explicit tree {"layers": [(W, b), ...], "pi": (W, b), "vf": (W, b),
+  ["logstd"]} to ``layers.<i>``, ``pi``, ``vf`` (``kfac_state_dict``), where the first
+  dense layer after the convs reads (C, H, W) rows in the port and (H, W, C) rows in
+  the JAX package: its rows are permuted here, once.
 """
 
 from __future__ import annotations
@@ -78,3 +86,44 @@ def network_state_dict(params: Mapping) -> dict:
 
 # the same mapping, under the names of the module each tree belongs to
 policy_state_dict = q_state_dict = actor_state_dict = critic_state_dict = network_state_dict
+
+
+def obs_norm_policy_state_dict(params: Mapping) -> dict:
+    """gail's {"pi": flax policy params, "ob_rms": RunningMeanStd} -> the state_dict of
+    ``algos.gail.gail.ObsNormPolicyValueNet``."""
+    out = {f"pi.{k}": v for k, v in network_state_dict(params["pi"]).items()}
+    rms = params["ob_rms"]
+    for field in ("mean", "var", "count"):
+        out[f"ob_rms_{field}"] = _tensor(getattr(rms, field))
+    return out
+
+
+def kfac_state_dict(params: Mapping, conv_hw: tuple | None) -> dict:
+    """acktr's KfacPolicyNet params -> the state_dict of the port's ``KfacPolicyNet``.
+    Conv kernels HWIO -> OIHW, dense kernels transposed; the first dense layer after a
+    conv has its input rows permuted from (H, W, C) to (C, H, W), with (H, W) =
+    ``conv_hw`` the last conv's output size (``KfacPolicyNet.conv_out_hw``, None for an
+    mlp)."""
+    out, prev_channels = {}, None
+    for i, (w, b) in enumerate(params["layers"]):
+        w = np.asarray(w)
+        if w.ndim == 4:
+            out[f"layers.{i}.weight"] = _tensor(w.transpose(3, 2, 0, 1))
+            prev_channels = w.shape[3]
+        else:
+            if prev_channels is not None:  # the flatten of the last conv's output
+                h, wd = conv_hw
+                if h * wd * prev_channels != w.shape[0]:
+                    raise ValueError(f"layers.{i}: {w.shape[0]} rows are not "
+                                     f"{h}x{wd}x{prev_channels}")
+                w = w.reshape(h, wd, prev_channels, -1).transpose(2, 0, 1, 3).reshape(w.shape)
+                prev_channels = None
+            out[f"layers.{i}.weight"] = _tensor(w.T)
+        out[f"layers.{i}.bias"] = _tensor(b)
+    for name in ("pi", "vf"):
+        w, b = params[name]
+        out[f"{name}.weight"] = _tensor(np.asarray(w).T)
+        out[f"{name}.bias"] = _tensor(b)
+    if "logstd" in params:
+        out["logstd"] = _tensor(params["logstd"])
+    return out

@@ -3,7 +3,9 @@
 ``PolicyValueNet`` encodes the observation (one-hot for ``Discrete`` and
 ``MultiDiscrete``), runs a latent network, and puts a distribution head (orthogonal
 init, gain 0.01) and a value head (gain 1.0) on the latent, or the value head on a
-separate value tower of the same architecture (``value_network="copy"``). For a ``Box``
+separate value tower of the same architecture (``value_network="copy"``); with
+``estimate_q`` (acer's policy) a ``q`` head of one value an action (gain 1.0) takes the
+value head's place, for ``Discrete`` actions (policy.py:83-86). For a ``Box``
 action space the head is the diagonal Gaussian's: ``pi`` gives the mean and a ``logstd``
 parameter of shape (1, d), initialised to zero, the log standard deviation. A recurrent
 network threads a carry and a mask through ``forward``, and ``unroll`` runs it over a
@@ -76,7 +78,7 @@ class PolicyValueNet(nn.Module):
 
     def __init__(self, network: nn.Module, ob_space, pdtype: PdType,
                  generator: torch.Generator | None = None,
-                 value_network: nn.Module | None = None):
+                 value_network: nn.Module | None = None, estimate_q: bool = False):
         super().__init__()
         self.network = network
         self.is_recurrent = bool(network.is_recurrent)
@@ -90,7 +92,11 @@ class PolicyValueNet(nn.Module):
         self.pi = _ortho(nn.Linear(network.latent_size, width), 0.01, generator)
         if self.gaussian:
             self.logstd = nn.Parameter(torch.zeros((1, width)))
-        self.vf = _ortho(nn.Linear(network.latent_size, 1), 1.0, generator)
+        self.estimate_q = estimate_q
+        if estimate_q:
+            self.q = _ortho(nn.Linear(network.latent_size, width), 1.0, generator)
+        else:
+            self.vf = _ortho(nn.Linear(network.latent_size, 1), 1.0, generator)
 
     def pd_head(self, latent: torch.Tensor) -> torch.Tensor:
         """The flat distribution parameters from the f32 latent."""
@@ -101,8 +107,12 @@ class PolicyValueNet(nn.Module):
 
     def heads(self, latent: torch.Tensor, vlatent: torch.Tensor | None = None):
         """(flat distribution parameters, value) from the f32 latent, the value from the
-        value tower's latent ``vlatent`` where there is one."""
-        return self.pd_head(latent), self.vf(latent if vlatent is None else vlatent)[..., 0]
+        value tower's latent ``vlatent`` where there is one; with ``estimate_q`` the
+        value is the (B, n_actions) q-values."""
+        vlatent = latent if vlatent is None else vlatent
+        if self.estimate_q:
+            return self.pd_head(latent), self.q(vlatent)
+        return self.pd_head(latent), self.vf(vlatent)[..., 0]
 
     def forward(self, obs: torch.Tensor, rnn_state: torch.Tensor | None = None,
                 rnn_mask: torch.Tensor | None = None):
@@ -199,16 +209,19 @@ class Policy:
 
 def build_policy(ob_space, ac_space, network: str = "mlp", *, device,
                  generator: torch.Generator | None = None, value_network: str | None = None,
-                 **network_kwargs) -> Policy:
+                 estimate_q: bool = False, **network_kwargs) -> Policy:
     """policies.build_policy (policy.py:143-175): ``Discrete``, ``MultiDiscrete`` or
     ``Box`` observations, and ``Discrete``, ``MultiDiscrete``, ``Box`` or
     ``MultiBinary`` actions. ``value_network`` None or "shared" shares the latent;
     "copy" builds an independent value tower of the same architecture, initialised
-    after the policy's."""
+    after the policy's. ``estimate_q`` puts a q head in place of the value head, for
+    ``Discrete`` actions."""
     if not isinstance(ob_space, (Discrete, MultiDiscrete, Box)):
         raise NotImplementedError(f"the port's policies do not take {ob_space!r} observations")
     if value_network not in (None, "shared", "copy"):
         raise ValueError(f"value_network must be None, 'shared' or 'copy', got {value_network!r}")
+    if estimate_q and not isinstance(ac_space, Discrete):
+        raise ValueError(f"estimate_q needs Discrete actions, got {ac_space!r}")
     pdtype = make_pdtype(ac_space)
 
     def make_net():
@@ -217,5 +230,5 @@ def build_policy(ob_space, ac_space, network: str = "mlp", *, device,
 
     net = make_net()
     vnet = make_net() if value_network == "copy" else None
-    module = PolicyValueNet(net, ob_space, pdtype, generator, vnet).to(device)
+    module = PolicyValueNet(net, ob_space, pdtype, generator, vnet, estimate_q).to(device)
     return Policy(module, ob_space, ac_space)

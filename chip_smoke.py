@@ -107,6 +107,32 @@ Phases, each printing its seconds:
         trip bit for bit with the same play report;
      e. the gather on 64 rows of ddpg's (10^6, 3) f32 ring and on 256 of her's flattened
         (510000, 2) f32 obs rows, bit for bit, timed in turns against index_select.
+  13. main path 8, acer, acktr and gail:
+     a. acer at acer/defaults.py atari() (cnn, 16 envs x 20 steps) on AtariSim-v0 with a
+        2500-chunk replay of flat 592,704-byte obs rows (1.48 GB on the card), replay
+        ratio 4 from 10000 steps, the trust region on, 40 updates: 5 gathers a replay
+        update (the count recomputed from numpy's RandomState(0) Poisson draws), finite
+        losses and average params; then the gather on 16 rows of that ring, bit for bit,
+        timed in turns against index_select on rows read cold (20 disjoint sets of 16
+        rows in turn) and warm (the same 16);
+     b. acer with mlp on CartPole-v1 through run.main (4 envs, --frame_stack=2
+        --dedup_frames=2, replay_start 2000, buffer_size 10000, 80000 steps), saved and
+        played: 6 gathers a replay update, a deterministic return over 100 on 600 steps
+        of 4 envs, the --load_path round trip bit for bit with the same play report;
+     c. acktr at acktr/defaults.py atari() (the Nature cnn, eigendecompositions every 10
+        updates) on AtariSim-v0, 8 envs x 20 steps, 20 updates: finite losses, finite
+        spectra clamped at 0, and the time of one eigh of the (3137, 3137) first-dense
+        factor; then acktr with mlp on DiscreteIdentity-v0 through run.main at the testing
+        defaults, 60000 steps: a deterministic return over 90 on 300 steps of 8 envs, the
+        --load_path round trip bit for bit;
+     d. gail on BoxIdentity-v0 through run.main with --expert_path (an .npz written to a
+        temporary directory: 5000 observations uniform in [-1, 1] from seed 0, acs = obs),
+        8 envs, 512 steps a batch, g_step 1, d_step 3, 100000 steps: 12 gathers an
+        iteration (10 in the value fit, 2 for the expert sample), a deterministic return
+        over -10 on 300 steps of 8 envs, the --load_path round trip bit for bit with the
+        adversary, its Adam states, the iteration count and the same play report;
+     e. the gather at gail's shapes (512 rows of f32 (512, 1) value-fit obs and of the
+        (5000, 1) expert table), bit for bit, timed in turns against index_select.
   Every sub-phase prints its seconds, env-steps/s (set-up included) and peak memory.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
@@ -1683,13 +1709,273 @@ def main() -> int:
             del x, idx
         kernels["take_rows"]["path7_shapes"] = path7_shapes
 
+    with Phase("main path 8: acer, acktr and gail"):
+        import numpy as np
+
+        from baselines_tpu_torch.algos.acer import acer
+        from baselines_tpu_torch.algos.acer.defaults import atari as acer_atari_defaults
+        from baselines_tpu_torch.algos.acktr import acktr
+        from baselines_tpu_torch.algos.acktr.defaults import atari as acktr_atari_defaults
+
+        def replays(updates: int, steps_per_update: int, replay_start: int) -> int:
+            """The replay updates acer draws in ``updates`` updates: numpy's
+            RandomState(0), one Poisson(4) an update from replay_start on."""
+            rng = np.random.RandomState(0)
+            return sum(rng.poisson(4) for u in range(1, updates + 1)
+                       if u * steps_per_update >= replay_start)
+
+        def check_rows(rows, keys, what):
+            require(rows and all(math.isfinite(float(r[k])) for r in rows for k in keys),
+                    f"{what}: a logged metric is missing or not finite")
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_slice8_")
+        try:
+            # a. acer on AtariSim-v0 at acer/defaults.py atari() (cnn, 16 envs x 20 steps,
+            # lrschedule constant), buffer_size 50000 (a ring of 2500 flat chunks),
+            # replay_ratio 4, replay_start 10000, the trust region on: 40 updates, replay
+            # from update 32 on (a depth cut, to keep the phase's time)
+            updates = 40
+            recorder = RecordingOutput()
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+            start = begin()
+            model = acer.learn(env_id="AtariSim-v0", total_timesteps=updates * 320, seed=0,
+                               buffer_size=50000, replay_ratio=4, replay_start=10000,
+                               log_interval=16, **acer_atari_defaults())
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            logger.reset()
+            counts["acer_atari"] = c = read_counts()
+            n_replay = replays(updates, 320, 10000)
+            require(c["take_rows"] == 5 * n_replay, f"acer on AtariSim launched {c}, expected "
+                    f"{5 * n_replay} take_rows (5 fields x {n_replay} replay updates)")
+            check_rows(recorder.rows, ("loss_policy", "loss_q", "entropy"), "acer on AtariSim")
+            require(all(bool(torch.isfinite(p).all()) for p in model.state.avg.parameters()),
+                    "acer on AtariSim: the average params are not finite")
+            ring = model.state.replay.data["obs"]
+            require(tuple(ring.shape) == (2500, 592704) and ring.dtype == torch.uint8,
+                    f"acer's obs ring is {ring.dtype} {tuple(ring.shape)}")
+            print(f"main path 8a [{card}]: acer cnn on AtariSim-v0, 16 x 20, {updates} updates "
+                  f"and {n_replay} replay updates, launches {c}; {elapsed:.2f} s for "
+                  f"{updates * 320} env steps = {updates * 320 / elapsed:.0f} env-steps/s "
+                  f"(set-up included); loss_policy "
+                  f"{[round(r['loss_policy'], 4) for r in recorder.rows]}, loss_q "
+                  f"{[round(r['loss_q'], 4) for r in recorder.rows]}; {peak_gib()}", flush=True)
+            # K2 on 16 rows of that ring: timed warm (the same 16 rows each call, 19 MB
+            # that stay in the 50 MB L2) and cold (20 calls on 20 disjoint sets of 16
+            # rows, 190 MB, so that each call reads its rows from device memory)
+            gen = torch.Generator(device=dev).manual_seed(13)
+            sets = torch.randperm(2500, device=dev, generator=gen)[:320].reshape(20, 16)
+            idx = sets[0].contiguous()
+            require(torch.equal(take_rows(ring, idx), ring[idx]),
+                    "take_rows on acer's flat obs rows differs from x[idx]")
+            cold = [sets[i].contiguous() for i in range(20)]
+
+            def cycling(fn):
+                it = iter(cold * 1000)
+                return lambda: fn(next(it))
+
+            t_warm, _ = turns_ms({"kernel": lambda: take_rows(ring, idx),
+                                  "index_select": lambda: ring.index_select(0, idx)}, 20)
+            t, readings = turns_ms({"kernel": cycling(lambda i: take_rows(ring, i)),
+                                    "plain": cycling(lambda i: ring[i]),
+                                    "index_select": cycling(lambda i: ring.index_select(0, i))},
+                                   20, rounds=3)
+            bms, by = bound_ms(0, 2 * 16 * 592704 + 16 * 8)
+            shape = "acer's flat obs ring: u8 (2500, 592704) by (16,) int64, rows read cold"
+            kernels["take_rows"]["path8_shapes"] = [dict(
+                shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=bms, bound_by=by, library_ms=t["index_select"])]
+            print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, "
+                  f"plain x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} "
+                  f"ms, bound {bms:.6f} ms ({by}), {bms / t['kernel']:.1%} of it; in turns: "
+                  f"{lead(readings, 'kernel', 'index_select')}; the same 16 rows warm in L2: "
+                  f"kernel {t_warm['kernel']:.4f} ms, index_select "
+                  f"{t_warm['index_select']:.4f} ms [{card}]", flush=True)
+            del model, ring
+
+            # b. acer with mlp on CartPole-v1 through run.main with
+            # tests/test_acer_learning.py:108-128's configuration: 4 envs, a 2-frame stack
+            # stored deduplicated, replay_start 2000, buffer_size 10000; 80000 steps where
+            # the test runs 120000, to keep the phase's time (the return it checks is
+            # reached by then)
+            path = os.path.join(tmp, "acer.pt")
+            steps = 80000
+            argv = ["--alg=acer", "--env=CartPole-v1", "--seed=0", "--num_env=4",
+                    "--frame_stack=2", "--dedup_frames=2", "--play"]
+            start = begin()
+            model_b, out_b = run_cli(argv + [f"--num_timesteps={steps}", "--replay_start=2000",
+                                             "--buffer_size=10000", f"--save_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'acer')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_acer"] = c = read_counts()
+            n_replay = replays(steps // 80, 80, 2000)
+            require(c["take_rows"] == 6 * n_replay, f"acer on CartPole launched {c}, expected "
+                    f"{6 * n_replay} take_rows (6 fields x {n_replay} replay updates)")
+            ret, length, episodes = evaluate(
+                model_b, build_env("CartPole-v1", 4, device=dev, frame_stack=2), Draws(1, dev),
+                nsteps=600)
+            require(ret > 100, f"acer on CartPole: deterministic return {ret}, want > 100")
+            with open(os.path.join(tmp, "acer", "progress.csv"), newline="") as f:
+                curve = [(int(float(r["total_timesteps"])), round(float(r["mean_episode_reward"]), 1))
+                         for r in csv.DictReader(f)]
+            model_l, out_l = run_cli(argv + ["--num_timesteps=0", f"--load_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'acer_l')}"])
+            require(same_params(model_b.policy.module, model_l.policy.module),
+                    "acer: the loaded params differ from the saved ones")
+            require(play_report(out_l) == play_report(out_b),
+                    f"acer: play after load {play_report(out_l)}, after training "
+                    f"{play_report(out_b)}")
+            print(f"main path 8b [{card}]: acer mlp on CartPole-v1 (2-frame stack, dedup) "
+                  f"through run.main, {steps // 80} updates and {n_replay} replay updates, "
+                  f"launches {c}; {elapsed:.2f} s with save and play = {steps / elapsed:.0f} "
+                  f"env-steps/s (set-up included); deterministic return {ret} (len {length}, "
+                  f"{episodes} episodes of 4 envs x 600 steps); mean_episode_reward by steps "
+                  f"{curve}; the load round trip bit for bit, {play_report(out_l)}; "
+                  f"{peak_gib()}", flush=True)
+            del model_b, model_l
+
+            # c. acktr on AtariSim-v0 at acktr/defaults.py atari() (the Nature cnn on 84x84x4
+            # u8, 20 steps, eigendecompositions every 10 updates), 8 envs, 20 updates
+            recorder = RecordingOutput()
+            logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+            start = begin()
+            model = acktr.learn(env_id="AtariSim-v0", num_envs=8, total_timesteps=20 * 160,
+                                seed=0, log_interval=1, **acktr_atari_defaults())
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            logger.reset()
+            counts["acktr_atari"] = c = read_counts()
+            check_rows(recorder.rows, ("policy_loss", "value_loss", "policy_entropy"),
+                       "acktr on AtariSim")
+            kf = model.state.kfac
+            require(kf.step == 20 and all(
+                bool(torch.isfinite(x).all()) and float(x.min()) >= 0
+                for lay in kf.layers for x in (lay.lamA, lay.lamS)),
+                "acktr on AtariSim: the factors' spectra are not finite and clamped")
+            dense_a = kf.layers[3].A
+            require(tuple(dense_a.shape) == (3137, 3137), f"acktr's first dense factor is "
+                    f"{tuple(dense_a.shape)}")
+            eigh_ms = time_ms(lambda: torch.linalg.eigh(dense_a), 3)
+            print(f"main path 8c [{card}]: acktr cnn on AtariSim-v0, 8 x 20, 20 updates (2 "
+                  f"eigendecomposition rounds), launches {c}; {elapsed:.2f} s for 3200 env "
+                  f"steps = {3200 / elapsed:.0f} env-steps/s (set-up included); policy_loss "
+                  f"{[round(r['policy_loss'], 4) for r in recorder.rows[::5]]}; eigh of the "
+                  f"(3137, 3137) first-dense factor {eigh_ms:.2f} ms; the spectra "
+                  f"{float(min(x.min() for lay in kf.layers for x in (lay.lamA, lay.lamS))):.3g}"
+                  f" to {float(max(x.max() for lay in kf.layers for x in (lay.lamA, lay.lamS))):.3g}"
+                  f"; {peak_gib()}", flush=True)
+            del model, kf, dense_a
+
+            # acktr with mlp on DiscreteIdentity-v0 through run.main with
+            # tests/test_acktr_learning.py:19-32's configuration (the testing defaults:
+            # 8 envs x 20 steps, gamma 0.9), 60000 steps
+            path = os.path.join(tmp, "acktr.pt")
+            argv = ["--alg=acktr", "--env=DiscreteIdentity-v0", "--seed=0", "--play"]
+            start = begin()
+            model_c, out_c = run_cli(argv + ["--num_timesteps=60000", f"--save_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'acktr')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_acktr"] = c = read_counts()
+            ret, length, episodes = evaluate(model_c, build_env("DiscreteIdentity-v0", 8,
+                                                                device=dev),
+                                             Draws(1, dev), nsteps=300)
+            require(ret > 90, f"acktr on DiscreteIdentity: deterministic return {ret}, want > 90")
+            model_l, out_l = run_cli(argv + ["--num_timesteps=0", f"--load_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'acktr_l')}"])
+            require(same_params(model_c.policy.module, model_l.policy.module),
+                    "acktr: the loaded params differ from the saved ones")
+            require(play_report(out_l) == play_report(out_c),
+                    f"acktr: play after load {play_report(out_l)}, after training "
+                    f"{play_report(out_c)}")
+            print(f"main path 8c [{card}]: acktr mlp on DiscreteIdentity-v0 through run.main, "
+                  f"{60000 // 160} updates, launches {c}; {elapsed:.2f} s with save and play = "
+                  f"{60000 / elapsed:.0f} env-steps/s (set-up included); deterministic return "
+                  f"{ret} (len {length}, {episodes} episodes of 8 envs x 300 steps); the load "
+                  f"round trip bit for bit, {play_report(out_l)}; {peak_gib()}", flush=True)
+            del model_c, model_l
+
+            # d. gail on BoxIdentity-v0 through run.main with --expert_path: an .npz in the
+            # reference schema, 5000 observations uniform in [-1, 1] from seed 0 with acs =
+            # obs (tests/test_gail_learning.py:24-27), and that test's configuration
+            expert = np.random.RandomState(0).uniform(-1, 1, size=(1, 5000, 1)).astype(np.float32)
+            expert_path = os.path.join(tmp, "expert.npz")
+            np.savez(expert_path, obs=expert, acs=expert.copy())
+            path = os.path.join(tmp, "gail.pt")
+            steps = 100000
+            argv = ["--alg=gail", "--env=BoxIdentity-v0", "--seed=0", "--num_env=8",
+                    "--timesteps_per_batch=512", "--gamma=0.9", "--lam=0.97", "--max_kl=0.01",
+                    "--g_step=1", "--d_step=3", f"--expert_path={expert_path}", "--play"]
+            start = begin()
+            model_d, out_d = run_cli(argv + [f"--num_timesteps={steps}", f"--save_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'gail')}"])
+            elapsed = time.perf_counter() - start
+            counts["cli_gail"] = c = read_counts()
+            iters = steps // 512
+            require(model_d.state.iters == iters and c["take_rows"] == iters * (5 * 2 + 2),
+                    f"gail launched {c} in {model_d.state.iters} iterations, expected "
+                    f"{iters * 12} take_rows (10 in the value fit and 2 for the expert sample "
+                    "an iteration)")
+            ret, length, episodes = evaluate(model_d, build_env("BoxIdentity-v0", 8, device=dev),
+                                             Draws(3, dev), nsteps=300)
+            require(ret > -10, f"gail on BoxIdentity: deterministic return {ret}, want > -10")
+            with open(os.path.join(tmp, "gail", "progress.csv"), newline="") as f:
+                rows = list(csv.DictReader(f))
+            model_l, out_l = run_cli(argv + ["--num_timesteps=0", f"--load_path={path}",
+                                             f"--log_path={os.path.join(tmp, 'gail_l')}"])
+            require(same_params(model_d.policy.module, model_l.policy.module)
+                    and same_params(model_d.disc, model_l.disc)
+                    and same_rms(model_d.state.d_obs_rms, model_l.state.d_obs_rms)
+                    and model_l.state.iters == iters
+                    and model_d.d_opt.count == model_l.d_opt.count == 3 * iters
+                    and all(torch.equal(x, y) for x, y in zip(
+                        model_d.d_opt.mu + model_d.d_opt.nu + model_d.opt.mu + model_d.opt.nu,
+                        model_l.d_opt.mu + model_l.d_opt.nu + model_l.opt.mu + model_l.opt.nu)),
+                    "gail: the loaded model or adversary differs from the saved one")
+            require(play_report(out_l) == play_report(out_d),
+                    f"gail: play after load {play_report(out_l)}, after training "
+                    f"{play_report(out_d)}")
+            print(f"main path 8d [{card}]: gail mlp on BoxIdentity-v0 through run.main, {iters} "
+                  f"iterations of 8 x 64, launches {c}; {elapsed:.2f} s with save and play = "
+                  f"{steps / elapsed:.0f} env-steps/s (set-up included); deterministic return "
+                  f"{ret} (len {length}, {episodes} episodes of 8 envs x 300 steps); "
+                  f"EpTrueRewMean {[round(float(r['EpTrueRewMean']), 2) for r in rows[::40]]}, "
+                  f"d accuracies {float(rows[-1]['d_gen_acc']):.3f} / "
+                  f"{float(rows[-1]['d_exp_acc']):.3f}; the load round trip bit for bit "
+                  f"(adversary and iters), {play_report(out_l)}; {peak_gib()}", flush=True)
+            del model_d, model_l
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # e. the gather at gail's shapes: the value fit's f32 (512, 1) obs rows by a
+        # 512-row permutation, and the expert sample, 512 rows of the (5000, 1) f32 table
+        gen = torch.Generator(device=dev).manual_seed(14)
+        for rows_n, what, idx in (
+                (512, "gail's value-fit obs", torch.randperm(512, device=dev, generator=gen)),
+                (5000, "gail's expert obs", torch.randint(0, 5000, (512,), device=dev,
+                                                          generator=gen))):
+            x = torch.randn((rows_n, 1), device=dev, generator=gen)
+            require(torch.equal(take_rows(x, idx), x[idx]), f"take_rows on {what} differs")
+            t, readings = turns_ms({"kernel": lambda: take_rows(x, idx),
+                                    "plain": lambda: x[idx],
+                                    "index_select": lambda: x.index_select(0, idx)}, 50,
+                                   rounds=3)
+            bms, by = bound_ms(0, 2 * 512 * 4 + 512 * 8)
+            shape = f"{what}: f32 {tuple(x.shape)} by (512,) int64"
+            kernels["take_rows"]["path8_shapes"].append(dict(
+                shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=bms, bound_by=by, library_ms=t["index_select"]))
+            print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, "
+                  f"plain x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} "
+                  f"ms, bound {bms:.6f} ms ({by}); in turns: "
+                  f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape",
-             "path7_shapes")
+             "path7_shapes", "path8_shapes")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

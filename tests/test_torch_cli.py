@@ -253,13 +253,15 @@ def test_run_without_device_needs_a_card(tmp_path):
 
 
 def test_algorithm_registry():
-    """ppo2/ppo, ppo1, a2c, deepq/dqn, trpo_mpi/trpo, ddpg and her resolve to the port's
-    learners, with the JAX package's defaults for each env type; every other algorithm
-    the JAX package knows raises NotImplementedError naming its item; an unknown name
+    """Every algorithm the JAX package knows resolves to the port's learner, with the
+    JAX package's defaults for each env type (her and gail have none); an unknown name
     raises ValueError, as the JAX registry does."""
     from baselines_tpu import algos as jax_algos
     from baselines_tpu_torch.algos.a2c import a2c
+    from baselines_tpu_torch.algos.acer import acer
+    from baselines_tpu_torch.algos.acktr import acktr
     from baselines_tpu_torch.algos.ddpg import ddpg
+    from baselines_tpu_torch.algos.gail import gail
     from baselines_tpu_torch.algos.her import her
     from baselines_tpu_torch.algos.ppo1 import ppo1
     from baselines_tpu_torch.algos.trpo import trpo
@@ -272,24 +274,82 @@ def test_algorithm_registry():
             is trpo.learn)
     assert algos.get_learn_function("ddpg") is ddpg.learn
     assert algos.get_learn_function("her") is her.learn
+    assert algos.get_learn_function("acktr") is acktr.learn
+    assert algos.get_learn_function("acer") is acer.learn
+    assert algos.get_learn_function("gail") is gail.learn
     assert algos.get_defaults("ppo2", "classic_control")["nsteps"] == 128
     assert algos.get_defaults("ppo1", "mujoco")["value_network"] == "copy"
     assert algos.get_defaults("deepq", "classic_control") == {"gamma": 0.99, "train_freq": 1}
-    for alg, item in (("acktr", "item 7"), ("acer", "item 7"), ("gail", "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            algos.get_learn_function(alg)
-    for alg in jax_algos.algo_names():
-        if alg not in algos.algo_names():
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                algos.get_defaults(alg, "classic_control")
+    assert algos.get_defaults("acktr", "atari") == {"network": "cnn", "nsteps": 20,
+                                                    "kfac_update": 10}
+    assert algos.get_defaults("acer", "atari")["lrschedule"] == "constant"
+    assert algos.get_defaults("gail", "mujoco") == {}
+    assert set(jax_algos.algo_names()) <= set(algos.algo_names())
     with pytest.raises(ValueError, match="unknown algorithm"):
         algos.get_learn_function("sac")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run.main(["--alg=acktr", "--env=CartPole-v1", "--device=cpu", "--num_timesteps=0"])
-    for alg in ("ppo2", "ppo1", "a2c", "trpo_mpi", "ddpg", "her"):
+    for alg in ("ppo2", "ppo1", "a2c", "trpo_mpi", "ddpg", "her", "acktr", "acer", "gail"):
         for env_type in ("atari", "mujoco", "classic_control", "robotics", "testing"):
             want = jax_algos.get_defaults(alg, env_type)
             got = algos.get_defaults(alg, env_type)
             assert set(got) == set(want), (alg, env_type)
             for k, v in want.items():
                 assert (got[k](0.5) == v(0.5)) if callable(v) else got[k] == v, (alg, env_type, k)
+
+
+@pytest.mark.parametrize("alg", ["acktr", "acer", "gail"])
+def test_new_learners_raise_for_a_mesh(alg):
+    """acktr, acer and gail take no ``mesh`` yet: it raises NotImplementedError naming
+    item 7 of ROADMAP.md's Queue 1 before anything is built, through the CLI's learner
+    too."""
+    learn = algos.get_learn_function(alg)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        learn(env_id="CartPole-v1", total_timesteps=0, mesh=object(), device="cpu")
+
+
+def _expert_npz(path) -> str:
+    """An expert for BoxIdentity-v0 in the reference schema: 4 trajectories of 50
+    uniform observations in [-1, 1], the action equal to the observation."""
+    import numpy as np
+
+    obs = np.random.RandomState(0).uniform(-1, 1, size=(4, 50, 1)).astype(np.float32)
+    np.savez(path, obs=obs, acs=obs.copy())
+    return str(path)
+
+
+@pytest.mark.parametrize("alg", ["acktr", "acer", "gail"])
+def test_run_round_trip_of_acktr_acer_gail(tmp_path, capsys, alg):
+    """``run.main`` with ``--device=cpu`` at a few hundred steps: train, ``--save_path``
+    and ``--play``, then ``--load_path`` with ``--num_timesteps=0 --play``: the same
+    params bit for bit (gail's adversary and iteration count too) and the same report.
+    acktr on CartPole-v1 at its classic-control defaults; acer on CartPole-v1 with
+    ``--frame_stack=2 --dedup_frames=2``, which the play env stacks too; gail on
+    BoxIdentity-v0 with ``--expert_path``, which reaches ``learn`` as a string."""
+    path = str(tmp_path / "model.pt")
+    extra = {
+        "acktr": ["--env=CartPole-v1", "--num_timesteps=320"],
+        "acer": ["--env=CartPole-v1", "--num_timesteps=480", "--num_env=4", "--nsteps=20",
+                 "--replay_start=160", "--buffer_size=400", "--frame_stack=2",
+                 "--dedup_frames=2"],
+        "gail": ["--env=BoxIdentity-v0", "--num_timesteps=512", "--num_env=4",
+                 "--timesteps_per_batch=256", "--g_step=1", "--num_hidden=16",
+                 f"--expert_path={_expert_npz(tmp_path / 'expert.npz')}"],
+    }[alg]
+    common = [f"--alg={alg}", "--seed=0", "--device=cpu", "--play"] + extra[:1]
+    model = run.main(common + extra[1:] + [f"--save_path={path}",
+                                           f"--log_path={tmp_path / 'a'}"])
+    first = _report(capsys.readouterr().out)
+    keep = [a for a in extra[1:] if a.split("=")[0] in (
+        "--num_env", "--frame_stack", "--dedup_frames", "--num_hidden", "--expert_path",
+        "--timesteps_per_batch")]
+    loaded = run.main(common + keep + ["--num_timesteps=0", f"--load_path={path}",
+                                       f"--log_path={tmp_path / 'b'}"])
+    second = _report(capsys.readouterr().out)
+    assert first == second
+    pairs = [(model.policy.module, loaded.policy.module)]
+    if alg == "gail":
+        pairs.append((model.disc, loaded.disc))
+        assert model.state.iters == loaded.state.iters == 2
+    for a, b in pairs:
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert (tmp_path / "a" / "progress.csv").exists()

@@ -503,3 +503,100 @@ def test_take_rows_kernel_on_her_buffer_rows(dev):
     assert cpu_launches == 0 and card_launches == 6
     for k in cpu:
         assert torch.equal(card[k].cpu(), cpu[k]), k
+
+
+def test_kfac_preconditioned_gradient_from_cusolver_matches_the_cpu(dev):
+    """acktr's K-FAC on the card: the factors' eigendecompositions by cuSOLVER's
+    ``eigh`` against the CPU's on the same SPD factors with distinct eigenvalues (a
+    513 x 513 A like a 512-unit layer's), compared through the preconditioned gradient,
+    which does not depend on the eigenvectors' signs: to 1e-4 relative; the spectra
+    clamped at 0."""
+    from baselines_tpu_torch.algos.acktr import kfac
+
+    gen = torch.Generator().manual_seed(0)
+    layers = []
+    for n_a, n_s in ((513, 6), (65, 64)):
+        mats = []
+        for n in (n_a, n_s):
+            q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, dtype=torch.float64))
+            lam = torch.linspace(0.05, 5.0, n, dtype=torch.float64)
+            mats.append((q @ torch.diag(lam) @ q.T).to(torch.float32))
+        layers.append(mats)
+    grads = [(torch.randn((n_a - 1, n_s), generator=gen), torch.randn((n_s,), generator=gen))
+             for (n_a, n_s) in ((513, 6), (65, 64))]
+    out = []
+    for device in ("cpu", dev):
+        state = kfac.KFACState(layers=[
+            kfac.LayerKFACState(A=a.to(device), S=s.to(device), QA=None, lamA=None, QS=None,
+                                lamS=None) for a, s in layers], momentum=[])
+        state = kfac.update_eigs(state)
+        assert all(float(lay.lamA.min()) >= 0 and float(lay.lamS.min()) >= 0
+                   for lay in state.layers)
+        out.append([kfac.precondition_layer(lay, gW.to(device), gb.to(device), 0.01)
+                    for lay, (gW, gb) in zip(state.layers, grads)])
+    for (cw, cb), (gw, gb) in zip(*out):
+        for c, g in ((cw, gw), (cb, gb)):
+            assert bool(torch.isfinite(g).all())
+            rel = float((g.cpu() - c).abs().max() / c.abs().max())
+            assert rel < 1e-4, rel
+
+
+def test_acer_train_chunk_on_the_card_matches_the_cpu(dev):
+    """acer's train_chunk on the card against the CPU, from the same weights on the same
+    (N = 16, T = 20) chunk of CartPole-shaped observations, with the trust region: each
+    param's and each average param's change to 1e-4 of the CPU's change beside two ulps
+    of the param, and finite metrics."""
+    import copy
+
+    import numpy as np
+
+    from baselines_tpu_torch.algos.acer import acer
+    from baselines_tpu_torch.algos.common import ClipRMSProp
+    from baselines_tpu_torch.envs.spaces import Box, Discrete
+    from baselines_tpu_torch.nn.policy import build_policy
+
+    gen = torch.Generator().manual_seed(4)
+    n, t, nact = 16, 20, 2
+    mus = torch.softmax(torch.randn((n, t, nact), generator=gen), dim=-1)
+    chunk = {"obs": torch.randn((n, t + 1, 4), generator=gen),
+             "actions": torch.randint(0, nact, (n, t), generator=gen, dtype=torch.int32),
+             "rewards": torch.ones((n, t)), "mus": mus,
+             "dones": (torch.rand((n, t), generator=gen) < 0.05).to(torch.float32)}
+    cpu = build_policy(Box(-1.0, 1.0, (4,)), Discrete(nact), "mlp", device="cpu",
+                       estimate_q=True, generator=torch.Generator().manual_seed(0))
+    start = copy.deepcopy(cpu.module.state_dict())
+    runs = []
+    for device in ("cpu", dev):
+        pol = build_policy(Box(-1.0, 1.0, (4,)), Discrete(nact), "mlp", device=device,
+                           estimate_q=True)
+        pol.module.load_state_dict(start)
+        avg = copy.deepcopy(pol.module)
+        opt = ClipRMSProp(pol.module.parameters(), 10.0, decay=0.99, eps=1e-5)
+        train = acer.make_train_chunk(pol, opt, nsteps=t, q_coef=0.5, ent_coef=0.01,
+                                      gamma=0.99, c=10.0, trust_region=True, alpha=0.99,
+                                      delta=1.0)
+        metrics = train(avg, 7e-4, {k: v.to(device) for k, v in chunk.items()})
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        runs.append((pol.module.state_dict(), avg.state_dict()))
+    for got_sd, want_sd in zip(runs[1], runs[0]):
+        for name, want in want_sd.items():
+            got = got_sd[name].cpu().double()
+            delta = (want.double() - start[name].double()).abs().max()
+            ulp = torch.from_numpy(np.spacing(want.abs().numpy())).double()
+            assert float(delta) > 0, name
+            assert bool(((got - want.double()).abs() <= 1e-4 * delta + 2 * ulp).all()), name
+
+
+def test_take_rows_kernel_on_acer_flat_rows(dev):
+    """acer's replay sample at Atari width: 16 rows of 592,704 bytes (21 stacked
+    84 x 84 x 4 u8 frames, flat) out of a ring of 40, bit for bit x[idx], one launch."""
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ring = torch.randint(0, 256, (40, 21 * 84 * 84 * 4), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    idx = torch.randint(0, 40, (16,), device=dev, generator=gen)
+    before = take_rows.launches
+    got = take_rows(ring, idx)
+    assert take_rows.launches == before + 1
+    assert torch.equal(got, ring[idx])

@@ -36,7 +36,10 @@ def test_every_port_module_imports_without_jax():
     assert int(proc.stdout.split()[-1]) >= 25
     imported = set(proc.stdout.split())
     for name in ("core.cg", "algos.trpo.trpo", "algos.ddpg.ddpg", "algos.ddpg.noise",
-                 "algos.her.her", "data.her_buffer", "envs.goal.point_reach"):
+                 "algos.her.her", "data.her_buffer", "envs.goal.point_reach",
+                 "algos.gail.gail", "algos.gail.adversary", "algos.gail.behavior_clone",
+                 "algos.gail.dataset", "algos.acktr.acktr", "algos.acktr.kfac",
+                 "algos.acer.acer", "data.frame_chunk"):
         assert f"baselines_tpu_torch.{name}" in imported, name
 
 
