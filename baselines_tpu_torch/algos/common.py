@@ -1,9 +1,13 @@
 """Shared learner scaffolding (counterpart of baselines_tpu/algos/common.py).
 
-- ``build_env``: env id -> the JAX package's wrapper chain for a device env
-  ([ClipActions] -> VecTorchEnv -> [VecFlattenDictObs] -> VecMonitor -> [VecRewardScale]
-  -> [VecNormalize] -> [VecFrameStack] -> [VecS2D]), the monitor and the normalization
-  across the ranks of a mesh ``axis_name``.
+- ``build_env``: env id -> the JAX package's wrapper chain: a device env
+  ([ClipActions] -> VecTorchEnv -> [VecFlattenDictObs]), a ``native:`` id's C++ engine
+  or a gymnasium id's host pool behind ``CallbackVecEnv`` (``make_host_vec_env``), then
+  VecMonitor -> [VecRewardScale] -> [VecNormalize] -> [VecFrameStack] -> [VecS2D], the
+  monitor and the normalization across the ranks of a mesh ``axis_name``;
+  ``closing_host_envs`` closes the host pools it opens in a block.
+- ``build_env_pair``, ``init_pipe_state`` and ``run_rollout_pipelined``: two host env
+  groups stepped in antiphase (``envs/host_pipeline.py``), ppo2's ``pipeline``.
 - ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
   returns a time-major trajectory and, for a recurrent policy, the carry.
@@ -23,7 +27,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -31,10 +37,12 @@ import torch
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import explained_variance, global_norm
+from baselines_tpu_torch.core.running_stats import RunningMeanStd, merge_branched
 from baselines_tpu_torch.distributed.collectives import all_gather_rows, merged_moments, pmean
 from baselines_tpu_torch.distributed.mesh import barrier, gather_state, shard_state
 from baselines_tpu_torch.envs.base import ClipActions
-from baselines_tpu_torch.envs.registry import get_env_type, make_env
+from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+from baselines_tpu_torch.envs.registry import get_env_type, is_torch_env, make_env
 from baselines_tpu_torch.envs.spaces import Box, DictSpace
 from baselines_tpu_torch.envs.vec import (VecFlattenDictObs, VecFrameStack, VecMonitor,
                                           VecNormalize, VecRewardScale, VecS2D, VecTorchEnv,
@@ -48,29 +56,100 @@ def not_ported(algo: str, option: str, where: str):
                               "of ROADMAP.md's Queue 1")
 
 
+# the host pools build_env opened and nothing closed yet
+_OPEN_HOST_ENVS = weakref.WeakSet()
+
+
+@contextlib.contextmanager
+def closing_host_envs():
+    """Close, when the block ends, the host pools ``build_env`` opened in it (run.main's
+    training and play envs)."""
+    before = set(_OPEN_HOST_ENVS)
+    try:
+        yield
+    finally:
+        for venv in list(_OPEN_HOST_ENVS):
+            if venv not in before:
+                _OPEN_HOST_ENVS.discard(venv)
+                venv.close()
+
+
+def gym_thunk(env_id: str, env_type: str):
+    """A function that makes the gymnasium env ``env_id`` (with gymnasium-robotics'
+    envs registered for a robotics id), in the pool's worker."""
+
+    def thunk():
+        import gymnasium as gym
+
+        if env_type == "robotics":
+            import gymnasium_robotics
+
+            gym.register_envs(gymnasium_robotics)
+        return gym.make(env_id)
+
+    return thunk
+
+
+def host_pool(thunk, num_envs: int):
+    """Worker processes for more than one env, the env in this process for one
+    (cmd_util.py:56-59)."""
+    from baselines_tpu_torch.envs.gym_bridge import HostDummyVecEnv, HostSubprocVecEnv
+
+    return HostSubprocVecEnv([thunk] * num_envs) if num_envs > 1 else HostDummyVecEnv([thunk])
+
+
+def make_host_vec_env(env_id: str, num_envs: int, env_type: str, *, device,
+                      keep_dict_obs: bool = False):
+    """A gymnasium id's host pool behind CallbackVecEnv (common.py:32-81); dict
+    observations are flattened to observation ++ desired_goal by VecFlattenDictObs
+    (make_robotics_env's FlattenDictWrapper, cmd_util.py:124-135) unless
+    ``keep_dict_obs``. Atari and retro ids need their wrapper chains, not ported yet."""
+    if env_type in ("atari", "retro"):
+        not_ported("build_env", f"the {env_type} host envs ({env_id!r})",
+                   "item 8 (envs/atari.py, envs/retro_wrappers.py)")
+    venv = CallbackVecEnv(host_pool(gym_thunk(env_id, env_type), num_envs), device=device)
+    _OPEN_HOST_ENVS.add(venv)
+    if not keep_dict_obs and isinstance(venv.observation_space, DictSpace):
+        venv = VecFlattenDictObs(venv)
+    return venv
+
+
 def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = None,
               reward_scale: float = 1.0, frame_stack: int = 0, s2d: int = 0,
               axis_name=None, keep_dict_obs: bool = False):
-    """The device env's chain of common.py:84-187: ClipActions on a ``Box`` action
-    space, VecTorchEnv, VecFlattenDictObs on dict observations unless ``keep_dict_obs``
-    (her reads the dicts; the other learners see observation ++ desired_goal, as the
-    JAX package's host goal envs give them, common.py:72-80), VecMonitor,
-    VecRewardScale when ``reward_scale`` != 1 (outside the monitor, whose statistics stay
-    raw), VecNormalize when ``normalize`` (None: only for mujoco envs), VecFrameStack
-    when ``frame_stack`` > 1, VecS2D when ``s2d``. Under a mesh ``axis_name``,
-    ``num_envs`` is the rank's envs, and the monitor and the normalization take every
-    rank's."""
-    env = make_env(env_id)
-    if isinstance(env.action_space, Box):
-        env = ClipActions(env)
-    venv = VecTorchEnv(env, num_envs, device)
-    if not keep_dict_obs and isinstance(venv.observation_space, DictSpace):
-        venv = VecFlattenDictObs(venv)
+    """The chain of common.py:84-187. The base: for a device env, ClipActions on a
+    ``Box`` action space, VecTorchEnv, and VecFlattenDictObs on dict observations unless
+    ``keep_dict_obs`` (her reads the dicts; the other learners see observation ++
+    desired_goal, as the JAX package's host goal envs give them, common.py:72-80); for a
+    ``native:`` id the C++ engine (``native/``) behind CallbackVecEnv, also for ids that
+    exist as device envs; for any other id a gymnasium host pool
+    (``make_host_vec_env``). Then VecMonitor, VecRewardScale when ``reward_scale`` != 1
+    (outside the monitor, whose statistics stay raw), VecNormalize when ``normalize``
+    (None: only for mujoco envs), VecFrameStack when ``frame_stack`` > 1, VecS2D when
+    ``s2d``. Under a mesh ``axis_name``, ``num_envs`` is the rank's envs, and the
+    monitor and the normalization take every rank's."""
+    env_type = get_env_type(env_id)
+    if env_id.startswith("native:"):
+        from baselines_tpu_torch.native import NativeVecEnv
+
+        venv = CallbackVecEnv(NativeVecEnv(env_id.split(":", 1)[1], num_envs), device=device)
+        _OPEN_HOST_ENVS.add(venv)
+        env_type = None
+    elif is_torch_env(env_id):
+        env = make_env(env_id)
+        if isinstance(env.action_space, Box):
+            env = ClipActions(env)
+        venv = VecTorchEnv(env, num_envs, device)
+        if not keep_dict_obs and isinstance(venv.observation_space, DictSpace):
+            venv = VecFlattenDictObs(venv)
+    else:
+        venv = make_host_vec_env(env_id, num_envs, env_type, device=device,
+                                 keep_dict_obs=keep_dict_obs)
     venv = VecMonitor(venv, axis_name=axis_name)
     if reward_scale != 1.0:
         venv = VecRewardScale(venv, reward_scale)
     if normalize is None:
-        normalize = get_env_type(env_id) == "mujoco"
+        normalize = env_type == "mujoco"
     if normalize:
         venv = VecNormalize(venv, axis_name=axis_name)
     if frame_stack and frame_stack > 1:
@@ -80,6 +159,18 @@ def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = No
             raise ValueError(f"--s2d must be a block size >= 2, got {s2d}")
         venv = VecS2D(venv, s2d)
     return venv
+
+
+def build_env_pair(env_id: str, num_envs: int, *, device, **env_kwargs):
+    """Two chains of ``num_envs / 2`` host envs each, with pools of their own, for the
+    antiphase rollout (common.py:190-204, ``envs/host_pipeline.py``)."""
+    from baselines_tpu_torch.envs.host_pipeline import PipelinedHostVecPair
+
+    if num_envs < 2 or num_envs % 2:
+        raise AssertionError("pipelining needs an even env count >= 2")
+    half = num_envs // 2
+    return PipelinedHostVecPair(build_env(env_id, half, device=device, **env_kwargs),
+                                build_env(env_id, half, device=device, **env_kwargs))
 
 
 @dataclass
@@ -291,6 +382,103 @@ def run_rollout(policy, venv, draws, env_state, obs, last_done, nsteps: int, rnn
         obs, last_done = nobs, ndone
     last_value = policy.value(obs, packed, rnn_state, last_done.to(torch.float32))
     return env_state, obs, last_done, traj, last_value, rnn_state
+
+
+@torch.no_grad()
+def init_pipe_state(policy, pair, draws, reset_a, reset_b):
+    """Prime the pipelined rollout (common.py:254-297): group B's first action is
+    computed and submitted, so that every step of the rollout finds one B step in
+    flight. Under VecNormalize both groups start from the union of their reset
+    statistics, the common prior from which ``merge_branched`` rebuilds the exact merge
+    after each rollout. Draws: the policy's noise for B's first step."""
+    from baselines_tpu_torch.envs.host_pipeline import PipeState
+
+    if policy.is_recurrent:
+        raise AssertionError("pipelined rollouts support feedforward policies")
+    obs_a, st_a = reset_a
+    obs_b, st_b = reset_b
+    ns_a, ns_b = find_normalize_state(st_a), find_normalize_state(st_b)
+    if ns_a is not None and ns_b is not None:
+        def union(a, b):
+            zero = RunningMeanStd(mean=torch.zeros_like(a.mean), var=torch.zeros_like(a.var),
+                                  count=torch.zeros_like(a.count))
+            return merge_branched(zero, a, b)
+
+        ob_rms = union(ns_a.ob_rms, ns_b.ob_rms)
+        ret_rms = union(ns_a.ret_rms, ns_b.ret_rms)
+        st_a = replace_normalize_stats(st_a, ob_rms, ret_rms)
+        st_b = replace_normalize_stats(st_b, ob_rms, ret_rms)
+    n = pair.a.num_envs
+    act_b, val_b, nlp_b = policy.step(obs_b, draws)
+    pair.submit_b(act_b)
+    no_done = torch.zeros((n,), dtype=torch.bool, device=obs_a.device)
+    return PipeState(state_a=st_a, state_b=st_b, obs_a=obs_a, pend_obs_b=obs_b,
+                     pend_act_b=act_b, pend_val_b=val_b, pend_nlp_b=nlp_b,
+                     last_done_a=no_done, last_done_b=no_done.clone())
+
+
+@torch.no_grad()
+def run_rollout_pipelined(policy, pair, draws, ps, nsteps: int):
+    """nsteps antiphase steps over the env pair (common.py:300-376): group A's host
+    step runs while the device computes group B's actions, and the other way round.
+    Each step: A's action, submit A and collect B (``swap_ab``), B's next action, submit
+    B and collect A (``swap_ba``). Draws: A's noise, then B's, at each step.
+
+    Returns (pipe_state, traj, last_value): traj's (T, N) fields hold group A in columns
+    [:N/2] and group B, one phase behind, in [N/2:]; last_value is A's value of its
+    current obs beside B's pending value. VecNormalize's statistics of the two groups
+    are merged exactly after the rollout (``merge_branched``), the in-process analog of
+    the reference's cross-rank moment Allreduce (mpi_running_mean_std.py:41-48)."""
+    from baselines_tpu_torch.envs.host_pipeline import PipeState, collect_through
+
+    ns_prev = find_normalize_state(ps.state_a)
+    packed = policy.pack()
+    half, dev = pair.a.num_envs, ps.obs_a.device
+    pdtype = policy.pdtype
+
+    def buf(shape=(), dtype=torch.float32):
+        return torch.empty((nsteps, 2 * half) + tuple(shape), dtype=dtype, device=dev)
+
+    traj = Trajectory(
+        obs=buf(ps.obs_a.shape[1:], ps.obs_a.dtype),
+        actions=buf(pdtype.sample_shape, pdtype.sample_dtype), values=buf(),
+        neglogps=buf(), rewards=buf(), dones=buf(dtype=torch.bool), rnn_masks=buf(),
+    )
+    cols = {"a": slice(0, half), "b": slice(half, 2 * half)}
+
+    def record(t, group, obs, action, value, neglogp, rew, done, mask):
+        c = cols[group]
+        traj.obs[t, c] = obs
+        traj.actions[t, c] = action
+        traj.values[t, c] = value
+        traj.neglogps[t, c] = neglogp
+        traj.rewards[t, c] = rew
+        traj.dones[t, c] = done
+        traj.rnn_masks[t, c] = mask
+
+    for t in range(nsteps):
+        act_a, val_a, nlp_a = policy.step(ps.obs_a, draws, packed)
+        # submit A (A's envs now step), collect B's step in flight
+        obs_b, st_b, rew_b, done_b, _ = collect_through(pair.b, ps.state_b,
+                                                        pair.swap_ab(act_a))
+        record(t, "b", ps.pend_obs_b, ps.pend_act_b, ps.pend_val_b, ps.pend_nlp_b, rew_b,
+               done_b, ps.last_done_b.to(torch.float32))
+        # B's next action computes while A's envs still step
+        act_b, val_b, nlp_b = policy.step(obs_b, draws, packed)
+        obs_a, st_a, rew_a, done_a, _ = collect_through(pair.a, ps.state_a,
+                                                        pair.swap_ba(act_b))
+        record(t, "a", ps.obs_a, act_a, val_a, nlp_a, rew_a, done_a,
+               ps.last_done_a.to(torch.float32))
+        ps = PipeState(state_a=st_a, state_b=st_b, obs_a=obs_a, pend_obs_b=obs_b,
+                       pend_act_b=act_b, pend_val_b=val_b, pend_nlp_b=nlp_b,
+                       last_done_a=done_a, last_done_b=done_b)
+    last_value = torch.cat([policy.value(ps.obs_a, packed), ps.pend_val_b])
+    if ns_prev is not None:
+        na, nb = find_normalize_state(ps.state_a), find_normalize_state(ps.state_b)
+        ob_rms = merge_branched(ns_prev.ob_rms, na.ob_rms, nb.ob_rms)
+        ret_rms = merge_branched(ns_prev.ret_rms, na.ret_rms, nb.ret_rms)
+        ps = replace_normalize_stats(ps, ob_rms, ret_rms)
+    return ps, traj, last_value
 
 
 @torch.no_grad()

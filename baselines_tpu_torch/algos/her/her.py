@@ -17,14 +17,22 @@ baselines_tpu/algos/her/her.py, after baselines/her).
 - Each epoch an evaluator rolls episodes without noise and logs ``test/success_rate``
   beside the exploring rollouts' ``train/success_rate``.
 
-The goal env is a device env of the registry (``PointReach-v0``) stepped directly, as
-the JAX package vmaps it; the gymnasium-robotics envs of the host bridge come with item 8
-of ROADMAP.md's Queue 1. ``--save_path`` writes the actor with both normalizers.
+Goal envs come two ways (her.py:134-190): a device env of the registry (``PointReach-v0``)
+stepped directly, as the JAX package vmaps it, with fresh episodes each cycle; or a
+gymnasium-robotics env (``FetchReach-v4``) in a host pool behind ``CallbackVecEnv``
+with dict observations and ``is_success`` from the infos, whose stream runs on across
+cycles: the envs only truncate, at the horizon T of the env's spec, so the auto-reset
+at a cycle's last step starts the next cycle's episodes, and the last step's terminal
+observation closes the stored episodes. Its reward for relabeled goals is the
+goal-distance threshold of the env's ``distance_threshold`` and ``reward_type``. The
+evaluator has a host pool of its own. ``--save_path`` writes the actor with both
+normalizers.
 
 Draws: a rollout step takes the Gaussian noise, the random actions, then the
-epsilon uniforms; a cycle takes the reset's draws, the steps', the store's, then each
-train step's sample (and its demonstration sample). The evaluator draws from its own
-generator, seeded with ``seed + 999``.
+epsilon uniforms; a cycle takes the device env's reset draws, the steps', the store's,
+then each train step's sample (and its demonstration sample). The host pools draw
+their reset seeds when ``learn`` starts, the train pool's from the run's draws. The
+evaluator draws from its own generator, seeded with ``seed + 999``.
 """
 
 from __future__ import annotations
@@ -35,20 +43,22 @@ import json
 import os.path as osp
 import time
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from baselines_tpu_torch.algos.common import (ClipAdam, Model, learner_device, not_ported,
-                                              polyak_update)
+from baselines_tpu_torch.algos.common import (ClipAdam, Model, gym_thunk, host_pool,
+                                              learner_device, not_ported, polyak_update)
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.rng import Draws
 from baselines_tpu_torch.core.running_stats import RunningMeanStd
 from baselines_tpu_torch.data.her_buffer import HerBufferState, HerReplayBuffer
 from baselines_tpu_torch.envs.base import TimeLimit
-from baselines_tpu_torch.envs.registry import is_torch_env, make_env
+from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+from baselines_tpu_torch.envs.registry import get_env_type, is_torch_env, make_env
 from baselines_tpu_torch.nn.networks import _lecun, get_network
 
 # env-keyed parameter overrides (her/experiment/config.py:10-14), by env id without its
@@ -93,6 +103,23 @@ class HERTrainState:
     g_rms: RunningMeanStd
     success_rate: torch.Tensor  # () f32, the exploring rollouts' moving average
     n_episodes: int = 0
+    # a host goal env's stream, carried across cycles: the train pool's state and obs
+    env_state: Any = None
+    obs: Any = None
+
+
+def goal_distance_reward(distance_threshold: float, reward_type: str):
+    """gymnasium-robotics' goal envs' compute_reward (her_sampler.py:52-56 calls the
+    env's): minus the goal distance, or -1 where it is over ``distance_threshold`` and 0
+    within it for ``reward_type="sparse"``."""
+
+    def compute_reward(achieved_goal: torch.Tensor, desired_goal: torch.Tensor):
+        d = torch.sqrt(torch.sum(torch.square(achieved_goal - desired_goal), dim=-1))
+        if reward_type == "sparse":
+            return -(d > distance_threshold).to(torch.float32)
+        return -d
+
+    return compute_reward
 
 
 class HERPolicy:
@@ -179,26 +206,40 @@ def learn(
     del env_kwargs
     if mesh is not None:
         not_ported("her", "mesh", "item 7 (her under a mesh)")
-    if env is None and env_id is not None and not is_torch_env(env_id):
-        not_ported("her", f"host goal env {env_id!r}", "item 8 (the host env bridge)")
     device = learner_device(None, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
     if n_cycles is None:
         n_cycles = DEFAULT_ENV_PARAMS.get((env_id or "").split("-v")[0], {}).get("n_cycles", 50)
 
-    wrapped = env if env is not None else make_env(env_id)
-    if not isinstance(wrapped, TimeLimit):
-        raise ValueError("HER needs a fixed-horizon goal env behind TimeLimit")
-    T = wrapped.max_episode_steps
-    base = wrapped.env
-    if not hasattr(base, "compute_reward"):
-        raise ValueError("HER's env must have compute_reward")
-    compute_reward = base.compute_reward
-    do = base.observation_space["observation"].shape[0]
-    dg = base.observation_space["desired_goal"].shape[0]
-    du = base.action_space.shape[0]
-    max_action = torch.as_tensor(base.action_space.high, device=device)
+    host_mode = env is None and env_id is not None and not is_torch_env(env_id)
+    if host_mode:
+        thunk = gym_thunk(env_id, get_env_type(env_id))
+        train_venv = CallbackVecEnv(host_pool(thunk, num_envs), info_keys=("is_success",),
+                                    device=device)
+        eval_venv = CallbackVecEnv(host_pool(thunk, num_envs), info_keys=("is_success",),
+                                   device=device)
+        probe = thunk()
+        T = probe.spec.max_episode_steps
+        compute_reward = goal_distance_reward(
+            float(getattr(probe.unwrapped, "distance_threshold", 0.05)),
+            getattr(probe.unwrapped, "reward_type", "sparse"))
+        probe.close()
+        ob_space, ac_space = train_venv.observation_space, train_venv.action_space
+    else:
+        wrapped = env if env is not None else make_env(env_id)
+        if not isinstance(wrapped, TimeLimit):
+            raise ValueError("HER needs a fixed-horizon goal env behind TimeLimit")
+        T = wrapped.max_episode_steps
+        base = wrapped.env
+        if not hasattr(base, "compute_reward"):
+            raise ValueError("HER's env must have compute_reward")
+        compute_reward = base.compute_reward
+        ob_space, ac_space = base.observation_space, base.action_space
+    do = ob_space["observation"].shape[0]
+    dg = ob_space["desired_goal"].shape[0]
+    du = ac_space.shape[0]
+    max_action = torch.as_tensor(ac_space.high, device=device)
     if gamma is None:
         gamma = 1.0 - 1.0 / T
     clip_return = 1.0 / (1.0 - gamma)
@@ -236,10 +277,15 @@ def learn(
         return actor(*normalized(state, o, g))
 
     @torch.no_grad()
-    def episodes(state: HERTrainState, draws, explore: bool):
-        """``num_envs`` fresh T-step episodes (her/rollout.py:50-136): o/ag (B, T + 1, .),
-        g/u (B, T, .) and the success rate of their last step."""
-        obs, env_state = base.reset(draws, num_envs, device)
+    def episodes(state: HERTrainState, draws, explore: bool, host=None):
+        """``num_envs`` T-step episodes (her/rollout.py:50-136): o/ag (B, T + 1, .), g/u
+        (B, T, .), the success rate of their last step, and the host stream's (env
+        state, obs) after them. Fresh episodes of the device env; with ``host``, (venv,
+        env state, obs) of a host pool, the episodes that its stream runs next."""
+        if host is None:
+            obs, env_state = base.reset(draws, num_envs, device)
+        else:
+            venv, env_state, obs = host
         os_, ags, gs, us = [], [], [], []
         for _ in range(T):
             o, ag, g = obs["observation"], obs["achieved_goal"], obs["desired_goal"]
@@ -249,16 +295,19 @@ def learn(
                 u_rand = draws.uniform(u.shape, -1.0, 1.0)
                 take_rand = draws.uniform((num_envs, 1), 0.0, 1.0) < random_eps
                 u = torch.where(take_rand, u_rand, u)
-            obs, env_state, _, _, info = base.step(draws, env_state, max_action * u)
+            step = base.step if host is None else venv.step
+            obs, env_state, _, _, info = step(draws, env_state, max_action * u)
             os_.append(o)
             ags.append(ag)
             gs.append(g)
             us.append(u)
-        os_.append(obs["observation"])
-        ags.append(obs["achieved_goal"])
+        # the last step's observation before any reset: a host pool auto-resets there
+        final = obs if host is None else info["terminal_obs"]
+        os_.append(final["observation"])
+        ags.append(final["achieved_goal"])
         success = info["is_success"].to(torch.float32).mean()
         return (torch.stack(os_, 1), torch.stack(ags, 1), torch.stack(gs, 1),
-                torch.stack(us, 1), success)
+                torch.stack(us, 1), success, (env_state, obs))
 
     def critic_loss(state: HERTrainState, batch: dict) -> torch.Tensor:
         """The critic's TD loss on a batch, its target clipped to [-1 / (1 - gamma), 0]
@@ -304,7 +353,11 @@ def learn(
     def cycle(state: HERTrainState, draws):
         """One cycle (her.py:384-424); returns the state and the last train step's
         (critic loss, actor loss)."""
-        o_seq, ag_seq, g_seq, u_seq, success = episodes(state, draws, explore=True)
+        host = (train_venv, state.env_state, state.obs) if host_mode else None
+        o_seq, ag_seq, g_seq, u_seq, success, (env_state, obs) = episodes(
+            state, draws, explore=True, host=host)
+        if host_mode:
+            state = dataclasses.replace(state, env_state=env_state, obs=obs)
         buf = buffer.store_episodes(state.buffer, draws, o_seq, ag_seq, g_seq, u_seq)
         o_rms = state.o_rms.update(o_seq.reshape(-1, do))
         g_rms = state.g_rms.update(torch.cat([g_seq.reshape(-1, dg), ag_seq.reshape(-1, dg)]))
@@ -318,21 +371,35 @@ def learn(
         polyak_update(state.target_critic, critic, 1 - polyak)
         return state, losses
 
+    eval_stream = None  # the evaluator's host pool's (env state, obs), across epochs
+
     def run_eval(state: HERTrainState, draws) -> float:
         """The evaluator (her/rollout.py's exploit mode, her/her.py:49-60): the mean
-        last-step success over ceil(n_test_rollouts / num_envs) rounds of fresh
-        episodes without noise."""
-        rounds = max(1, -(-n_test_rollouts // num_envs))
-        return sum(float(episodes(state, draws, explore=False)[-1])
-                   for _ in range(rounds)) / rounds
+        last-step success over ceil(n_test_rollouts / num_envs) rounds of episodes
+        without noise, fresh ones of the device env or the evaluator pool's next."""
+        nonlocal eval_stream
+        rounds, total = max(1, -(-n_test_rollouts // num_envs)), 0.0
+        for _ in range(rounds):
+            host = (eval_venv, *eval_stream) if host_mode else None
+            *_, success, stream = episodes(state, draws, explore=False, host=host)
+            if host_mode:
+                eval_stream = stream
+            total += float(success)
+        return total / rounds
 
     draws = Draws(seed, device)
     eval_draws = Draws(seed + 999, device)
+    init_env_state = init_obs = None
+    if host_mode:
+        init_obs, init_env_state = train_venv.reset(draws)
+        eval_obs, eval_env_state = eval_venv.reset(eval_draws)
+        eval_stream = (eval_env_state, eval_obs)
     state = HERTrainState(
         target_actor=copy.deepcopy(actor), target_critic=copy.deepcopy(critic),
         buffer=buffer.init(device), o_rms=RunningMeanStd.create((do,), device=device),
         g_rms=RunningMeanStd.create((dg,), device=device),
-        success_rate=torch.zeros((), dtype=torch.float32, device=device))
+        success_rate=torch.zeros((), dtype=torch.float32, device=device),
+        env_state=init_env_state, obs=init_obs)
     model = HERModel(None, state, draws=draws)
     model.policy = HERPolicy(actor, critic,
                              lambda o, g: pi(model.state, o, g),
@@ -377,5 +444,8 @@ def learn(
             logger.logkv("train/loss_critic", float(losses[0]))
             logger.logkv("train/loss_actor", float(losses[1]))
             logger.dumpkvs()
+    if host_mode:
+        train_venv.close()
+        eval_venv.close()
     model.state = state
     return model

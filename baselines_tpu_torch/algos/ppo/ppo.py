@@ -7,9 +7,10 @@ with advantages normalized per minibatch (or once over the whole batch with
 ppo2/ppo2.py:21-218: noptepochs x nminibatches of shuffled minibatch steps, the
 learning rate and clip range annealed by the remaining fraction of training.
 
-Ported so far: feedforward and recurrent policies, a shared latent or a separate value
-tower (``value_network="copy"``), gradient microbatching, and data parallelism over a
-``Mesh`` of ranks (``mesh``). Each update
+Ported: feedforward and recurrent policies, a shared latent or a separate value
+tower (``value_network="copy"``), gradient microbatching, data parallelism over a
+``Mesh`` of ranks (``mesh``), and the antiphase rollout over two groups of host envs
+(``pipeline``, ``envs/host_pipeline.py``). Each update
 is a rollout, GAE, then the epochs. A feedforward epoch draws a fresh permutation of the
 samples and gathers every field of the batch through the row-gather kernel
 (``ops/gather.py``); a recurrent epoch permutes the envs and replays whole env sequences
@@ -42,8 +43,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
-                                              mesh_metrics, not_ported, run_rollout,
+from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, build_env_pair,
+                                              init_pipe_state, learner_device, mesh_metrics,
+                                              run_rollout, run_rollout_pipelined,
                                               update_metrics)
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.checkpoint import latest_checkpoint, periodic_path
@@ -52,6 +54,7 @@ from baselines_tpu_torch.distributed.collectives import merge_moments
 from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.core.schedules import resolve_fraction_schedule
 from baselines_tpu_torch.data.gae import gae
+from baselines_tpu_torch.envs.registry import is_torch_env
 from baselines_tpu_torch.envs.vec import VecMonitor
 from baselines_tpu_torch.nn.policy import build_policy
 from baselines_tpu_torch.ops.gather import take_rows
@@ -140,7 +143,7 @@ def _normalize_advs(returns: torch.Tensor, values: torch.Tensor, mesh=None) -> t
 def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepochs, gamma,
                    lam, ent_coef, vf_coef, lr_fn, cliprange_fn, nupdates,
                    microbatch_size: int | None = None, adv_norm: str = "minibatch",
-                   clip_value: bool = True, mesh=None):
+                   clip_value: bool = True, mesh=None, pipelined: bool = False):
     """One PPO update (ppo.py:130-396): ``update_fn(state, draws) -> (state, metrics)``.
     The rollout takes its draws first, then each epoch one permutation.
     ``adv_norm="batch"`` standardizes the advantages once over the whole batch and
@@ -160,7 +163,13 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
     takes 1/size of every minibatch from them; a microbatch takes ``microbatch_size /
     size`` of the rank's rows. The advantage moments are the whole mesh's, and so is the
     monitor's ring after the rollout; the metrics are the rank's shares, which
-    ``algos.common.mesh_metrics`` reduces."""
+    ``algos.common.mesh_metrics`` reduces.
+
+    ``pipelined`` takes the rollout from ``run_rollout_pipelined`` over ``venv``, a
+    ``PipelinedHostVecPair`` whose state (``state.env_state``) is a ``PipeState``
+    (ppo.py:214-217): the draws of each step are group A's noise, then group B's, and
+    the state's ``obs`` and ``last_done`` stay as they are. GAE, the epochs and the
+    minibatch steps are the same."""
     if adv_norm not in ("minibatch", "batch"):
         raise ValueError(f"adv_norm must be 'minibatch' or 'batch', got {adv_norm!r}")
     size = 1 if mesh is None else mesh.size
@@ -168,6 +177,8 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
     nbatch = nenvs * nsteps
     nbatch_train = nbatch // nminibatches
     recurrent = policy.is_recurrent
+    if pipelined and recurrent:
+        raise AssertionError("pipelined rollouts support feedforward policies")
     if recurrent and nenvs % nminibatches:
         raise ValueError(f"recurrent PPO needs nminibatches ({nminibatches}) to divide "
                          f"num_envs ({nenvs} on each of {size} ranks) (ppo2/ppo2.py:107)")
@@ -209,9 +220,14 @@ def make_update_fn(policy, venv, opt: ClipAdam, *, nsteps, nminibatches, noptepo
         cliprange = cliprange_fn(frac)
 
         rollout_init_rnn = state.rnn_state
-        env_state, obs, last_done, traj, last_value, rnn_state = run_rollout(
-            policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps,
-            rollout_init_rnn)
+        if pipelined:
+            env_state, traj, last_value = run_rollout_pipelined(policy, venv, draws,
+                                                                state.env_state, nsteps)
+            obs, last_done, rnn_state = state.obs, state.last_done, state.rnn_state
+        else:
+            env_state, obs, last_done, traj, last_value, rnn_state = run_rollout(
+                policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps,
+                rollout_init_rnn)
         env_state = VecMonitor.sync_stats(env_state, mesh)
         advs, returns = gae(traj.rewards, traj.values, traj.dones, last_value, gamma, lam)
         batch_t = [traj.obs, traj.actions, returns, traj.values, traj.neglogps, traj.rnn_masks]
@@ -286,10 +302,13 @@ def learn(
 ) -> Model:
     """Train ppo2 (ppo2/ppo2.py:21-218), logging the keys of ppo.py:589-599.
 
-    Takes every keyword of the JAX package's ``learn``; those whose part is not ported
-    yet raise ``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that
-    brings it. ``pipeline=None`` picks the on-device rollout, as the JAX package does
-    for a device env. ``mesh``, a ``Mesh`` from ``distributed.make_mesh``, trains data
+    Takes every keyword of the JAX package's ``learn``. ``pipeline`` steps two groups
+    of host envs in antiphase (``envs/host_pipeline.py``); None turns it on, as the JAX
+    package does (ppo.py:423-440), for an ``env_id`` that is not a device env (a
+    ``native:`` or gymnasium id) with an even ``num_envs`` >= 2, no ``env`` and no mesh,
+    and a string network that is not recurrent; a device env always takes the serial
+    rollout, and ``pipeline=True`` on one fails. ``mesh``, a ``Mesh`` from
+    ``distributed.make_mesh``, trains data
     parallel: every rank of the mesh calls ``learn`` with the same arguments, steps
     ``num_envs / size`` of the envs on the mesh's device (an ``env`` given is the
     rank's) and holds the same params; the log and the checkpoints are the whole
@@ -297,15 +316,22 @@ def learn(
     ``env_kwargs`` go to ``build_env`` (``normalize``, ``reward_scale``,
     ``frame_stack``, ``s2d``) and the remaining keywords to the network (for example
     ``dtype=torch.bfloat16``)."""
-    if pipeline:
-        not_ported("ppo2", "pipeline", "item 8 (the host pipeline)")
     check_mesh(mesh, "ppo2's mesh")
+    if pipeline is None:
+        pipeline = (env is None and env_id is not None and not is_torch_env(env_id)
+                    and num_envs >= 2 and num_envs % 2 == 0 and mesh is None
+                    and isinstance(network, str) and "lstm" not in network)
     device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
-    venv = env if env is not None else build_env(
-        env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh,
-        **(env_kwargs or {}))
+    if pipeline:
+        if env is not None:
+            raise AssertionError("pipeline mode builds its own env pair from env_id")
+        venv = build_env_pair(env_id, num_envs, device=device, **(env_kwargs or {}))
+    else:
+        venv = env if env is not None else build_env(
+            env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh,
+            **(env_kwargs or {}))
     nbatch = venv.num_envs * nsteps * (1 if mesh is None else mesh.size)
     nupdates = max(total_timesteps // nbatch, 1) if total_timesteps > 0 else 0
 
@@ -314,7 +340,13 @@ def learn(
                           generator=init_gen, value_network=value_network, **network_kwargs)
     opt = ClipAdam(policy.module.parameters(), max_grad_norm, eps=adam_epsilon, mesh=mesh)
     draws = Draws(seed, device) if mesh is None else ShardedDraws(Draws(seed, device), mesh)
-    obs, env_state = venv.reset(draws)
+    if pipeline:  # ppo.py:474-489: A's reset, B's, then B's first action in flight
+        reset_a = venv.a.reset(draws)
+        reset_b = venv.b.reset(draws)
+        obs = reset_a[0]
+        env_state = init_pipe_state(policy, venv, draws, reset_a, reset_b)
+    else:
+        obs, env_state = venv.reset(draws)
     state = PPOTrainState(env_state=env_state, obs=obs,
                           last_done=torch.zeros((venv.num_envs,), dtype=torch.bool, device=device),
                           rnn_state=policy.initial_state(venv.num_envs))
@@ -323,7 +355,7 @@ def learn(
         gamma=gamma, lam=lam, ent_coef=ent_coef, vf_coef=vf_coef,
         lr_fn=resolve_fraction_schedule(lr), cliprange_fn=resolve_fraction_schedule(cliprange),
         nupdates=nupdates, microbatch_size=microbatch_size, adv_norm=adv_norm,
-        clip_value=clip_value, mesh=mesh,
+        clip_value=clip_value, mesh=mesh, pipelined=pipeline,
     )
 
     model = Model(policy, state, opt, draws, mesh)

@@ -5,9 +5,9 @@ Registered, all stepped on the device: the classic envs ``CartPole-v0``/``-v1``,
 the fixture envs ``DiscreteIdentity-v0``, ``BoxIdentity-v0``,
 ``MultiDiscreteIdentity-v0``, ``ImageIdentity-v0``, ``ImageIdentity36-v0``,
 ``FixedSequence-v0`` and ``ImageFixedSequence-v0``; ``AtariSim-v0``; and the goal env
-``PointReach-v0``. The ids the JAX package serves through its host bridge (gymnasium
-ids, ``native:`` ids) raise ``NotImplementedError`` naming the item of ROADMAP.md's
-Queue 1 that brings them.
+``PointReach-v0``. ``make_env`` serves these device ids only, as the JAX package's
+does; gymnasium ids and ``native:`` ids are host envs, which ``algos.common.build_env``
+builds behind the host bridge (``envs/gym_bridge.py``, ``native/``).
 """
 
 from __future__ import annotations
@@ -81,6 +81,6 @@ def make_env(env_id: str) -> TorchEnv:
     """Instantiate a batched device env by id."""
     if env_id in _ENVS:
         return _ENVS[env_id][0]()
-    raise NotImplementedError(f"env {env_id!r} is not ported yet; it comes with item 8 (the "
-                              "host env bridge) of "
-                              f"ROADMAP.md's Queue 1. The port has {env_names()}")
+    raise ValueError(f"{env_id!r} is not a device env (the device envs are {env_names()}); "
+                   "a gymnasium or native: id is a host env, which "
+                   "baselines_tpu_torch.algos.common.build_env builds")

@@ -13,8 +13,10 @@ Ported: ``VecTorchEnv`` (the batch with auto-reset, of tensor or dict observatio
 and ``replace_normalize_stats``, ``VecS2D`` with the packed 3-D layout, and the dict-obs
 wrappers ``VecExtractDictObs`` and ``VecFlattenDictObs``. Under a data-parallel mesh
 (``axis_name``), VecMonitor's ring (after ``VecMonitor.sync_stats``) and VecNormalize's
-statistics are those of every rank's envs, held alike by every rank. The pipelined env
-pair's branch of the normalize helpers comes with item 8 of ROADMAP.md's Queue 1.
+statistics are those of every rank's envs, held alike by every rank. A pipelined env
+pair's state (``envs/host_pipeline.PipeState``) has both groups' monitors merged by
+``VecMonitor.get_stats`` and both groups' statistics read and set by the normalize
+helpers.
 """
 
 from __future__ import annotations
@@ -185,6 +187,32 @@ class EpisodeStats:
         """eplenmean (ppo2/ppo2.py:202)."""
         return self._masked_mean(self.len_buffer)
 
+    def _masked_sum_and_count(self, buf: torch.Tensor):
+        valid = torch.clamp(self.episodes, max=EPISODE_BUFFER)
+        mask = torch.arange(EPISODE_BUFFER, device=buf.device) < valid
+        return torch.where(mask, buf, 0.0).sum(), valid
+
+    def merge(self, other: "EpisodeStats") -> "MergedStats":
+        """The recent episodes of two groups as one, weighted by their episode counts:
+        the log's view of a pipelined env pair (vec.py:121-135)."""
+        rs, rc = self._masked_sum_and_count(self.ret_buffer)
+        ros, roc = other._masked_sum_and_count(other.ret_buffer)
+        ls, _ = self._masked_sum_and_count(self.len_buffer)
+        los, _ = other._masked_sum_and_count(other.len_buffer)
+        total = rc + roc
+        denom = torch.clamp(total, min=1)
+        nan = torch.full_like(rs, float("nan"))
+        return MergedStats(mean_return=torch.where(total > 0, (rs + ros) / denom, nan),
+                           mean_length=torch.where(total > 0, (ls + los) / denom, nan),
+                           episodes=self.episodes + other.episodes)
+
+
+@dataclass
+class MergedStats:
+    mean_return: torch.Tensor
+    mean_length: torch.Tensor
+    episodes: torch.Tensor
+
 
 class VecTorchEnv:
     """A batch of ``num_envs`` envs on ``device`` with subprocess-matching auto-reset
@@ -242,6 +270,12 @@ class VecWrapper:
         obs, inner, rew, done, info = self.venv.step(draws, self.unwrap_state(state), actions)
         return self.post(state, obs, inner, rew, done, info)
 
+    def close(self):
+        """Forwarded down the chain (vec_env.py:140-175), to a host pool's close."""
+        close = getattr(self.venv, "close", None)
+        if close is not None:
+            close()
+
 
 @dataclass
 class MonitorState:
@@ -271,7 +305,11 @@ class VecMonitor(VecWrapper):
         return obs, MonitorState(inner, stats), rew, done, info
 
     @staticmethod
-    def get_stats(state) -> EpisodeStats:
+    def get_stats(state):
+        """The EpisodeStats of the chain's monitor; of a pipelined pair's state, both
+        groups' merged (``EpisodeStats.merge``)."""
+        if hasattr(state, "state_a"):
+            return VecMonitor.get_stats(state.state_a).merge(VecMonitor.get_stats(state.state_b))
         while not isinstance(state, MonitorState):
             state = state.inner
         return state.stats
@@ -494,21 +532,30 @@ class VecNormalize(VecWrapper):
 
 def find_normalize_state(env_state) -> NormalizeState | None:
     """The NormalizeState in a chain of wrapper states, or None when the env is not
-    normalized (vec.py:519-532; the pipelined pair's branch comes with item 8)."""
+    normalized (vec.py:519-532); of a pipelined pair's state, group A's, as the groups'
+    statistics are merged after every rollout."""
     while env_state is not None:
         if isinstance(env_state, NormalizeState):
             return env_state
+        if hasattr(env_state, "state_a"):
+            env_state = env_state.state_a
+            continue
         env_state = getattr(env_state, "inner", None)
     return None
 
 
 def replace_normalize_stats(env_state, ob_rms: RunningMeanStd, ret_rms: RunningMeanStd):
     """``env_state`` with its NormalizeState's statistics swapped for the given ones, and
-    as it is when the chain has no NormalizeState (vec.py:535-551)."""
+    as it is when the chain has no NormalizeState (vec.py:535-551); both groups' of a
+    pipelined pair's state."""
     if env_state is None:
         return None
     if isinstance(env_state, NormalizeState):
         return dataclasses.replace(env_state, ob_rms=ob_rms, ret_rms=ret_rms)
+    if hasattr(env_state, "state_a"):
+        return dataclasses.replace(
+            env_state, state_a=replace_normalize_stats(env_state.state_a, ob_rms, ret_rms),
+            state_b=replace_normalize_stats(env_state.state_b, ob_rms, ret_rms))
     inner = getattr(env_state, "inner", None)
     if inner is None:
         return env_state

@@ -7,8 +7,10 @@ keywords over the defaults (an explicit ``--network`` beats them), ``--num_env``
 ``--save_path`` / ``--load_path``, ``--log_path`` and a ``--play`` report after
 training, under the model's VecNormalize statistics when it has them. The learners run
 on the card unless ``--device=cpu`` is given, a free-form keyword that reaches
-``learn``. ``--save_video_interval`` and ``--gamestate`` raise ``NotImplementedError``
-naming the item of ROADMAP.md's Queue 1 that brings them.
+``learn``. ``--env`` takes the device envs, ``native:`` ids (the C++ engine) and
+gymnasium ids (host pools); the host pools that ``build_env`` opened are closed when
+``main`` returns. ``--save_video_interval`` and ``--gamestate`` raise
+``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that brings them.
 
 In a ``torch.distributed`` group the log is configured for the process (process 0 writes
 the rows) and process 0 alone writes ``--save_path`` (run.py:105-112). The CLI builds no
@@ -22,7 +24,7 @@ import os.path as osp
 import sys
 
 from baselines_tpu_torch import algos
-from baselines_tpu_torch.algos.common import build_env, evaluate
+from baselines_tpu_torch.algos.common import build_env, closing_host_envs, evaluate
 from baselines_tpu_torch.cmd_util import common_arg_parser, parse_cmdline_kwargs
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.rng import Draws
@@ -87,7 +89,11 @@ def main(argv=None):
     args, unknown_args = common_arg_parser().parse_known_args(argv)
     extra_args = parse_cmdline_kwargs(unknown_args)
     logger.configure_for_process(process_index(), dir=args.log_path)
+    with closing_host_envs():
+        return _train_save_play(args, extra_args)
 
+
+def _train_save_play(args, extra_args):
     model = train(args, extra_args)
 
     if args.save_path is not None and process_index() == 0:

@@ -275,6 +275,428 @@ class Phase:
             print(f"[phase] {self.name}: {time.perf_counter() - self.start:.2f} s", flush=True)
 
 
+def host_env_path(dev, card, kernels, counts, reset_counts, read_counts, run_cli,
+                  play_report, recording_output):
+    """Main path 9, the host env path (phase 14 of the module's docstring): the native
+    engine, the pipelined pair on the counting fixture, ppo2 fused and pipelined at
+    bench.py:288-299's width, run.main at 1024 native envs, and a profile of one
+    pipelined update. Adds the path's launch counts to ``counts`` and K2's times at its
+    shapes to ``kernels``."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from baselines_tpu_torch import native
+    from baselines_tpu_torch.algos.common import (ClipAdam, build_env_pair, init_pipe_state,
+                                                  run_rollout, run_rollout_pipelined)
+    from baselines_tpu_torch.algos.ppo.ppo import PPOTrainState, learn, make_update_fn
+    from baselines_tpu_torch.core import logger, profiler
+    from baselines_tpu_torch.core.rng import Draws
+    from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+    from baselines_tpu_torch.envs.gym_bridge import HostVecEnv
+    from baselines_tpu_torch.envs.host_pipeline import PipelinedHostVecPair
+    from baselines_tpu_torch.envs.registry import make_env
+    from baselines_tpu_torch.envs.spaces import Box, Discrete
+    from baselines_tpu_torch.envs.vec import VecMonitor
+    from baselines_tpu_torch.nn.policy import build_policy
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    # a. the engine built by g++ from the checkout, then each of its envs against the
+    # port's device env on the card, 64 envs (OpenMP's branch), from the same physics
+    built = native.library_path().exists()
+    start = time.perf_counter()
+    path = native.build()
+    native.library()
+    build_s = time.perf_counter() - start
+    print(f"main path 9a: native engine {'found built' if built else 'built by g++'} in "
+          f"{build_s:.2f} s -> {path}", flush=True)
+    worst = {}
+    for env_id, n_steps in (("CartPole-v1", 30), ("Pendulum-v1", 50), ("MountainCar-v0", 50),
+                            ("MountainCarContinuous-v0", 50), ("Acrobot-v1", 40)):
+        pool = native.NativeVecEnv(env_id, 64, seed=11)
+        pool.reset(seed=11)
+        phys = pool.get_state()
+        rng = np.random.RandomState(0)
+        discrete = isinstance(pool.action_space, Discrete)
+        actions = (rng.randint(0, pool.action_space.n, (n_steps, 64)).astype(np.float32)
+                   if discrete else rng.uniform(-1, 1, (n_steps, 64, 1)).astype(np.float32))
+        env = make_env(env_id).unwrapped
+        draws = Draws(0, dev)
+        _, state = env.reset(draws, 64, dev)
+        fields, col = {}, 0
+        for f in dataclasses.fields(state):
+            x = getattr(state, f.name)
+            width = int(np.prod(x.shape[1:]))
+            vals = phys[:, col:col + width].astype(np.float32).reshape(tuple(x.shape))
+            fields[f.name] = torch.from_numpy(vals).to(dev)
+            col += width
+        state = dataclasses.replace(state, **fields)
+        alive = np.ones(64, bool)
+        err = 0.0
+        for a in actions:
+            o, r, d, infos = pool.step(a)
+            o = o.copy()
+            for i in np.flatnonzero(d):
+                o[i] = infos[i]["terminal_observation"]
+            act = torch.from_numpy(a).to(dev)
+            obs, state, rew, _, _ = env.step(draws, state, act.long() if discrete else act)
+            # tests/test_native_env.py's tolerance: |native - device| <= 1e-4 + 1e-4 |device|
+            got = np.concatenate([obs.cpu().numpy(), rew.cpu().numpy()[:, None]], axis=1)
+            want = np.concatenate([o, r[:, None]], axis=1)[alive]
+            diff = np.abs(got[alive] - want)
+            err = max(err, float(diff.max(initial=0.0)))
+            require(bool(np.all(diff <= 1e-4 + 1e-4 * np.abs(got[alive]))),
+                    f"native {env_id} differs from the device env by {diff.max():.3g}")
+            alive &= ~d  # past an env's first end the engine has reset it
+        pool.close()
+        worst[env_id] = err
+    print(f"main path 9a [{card}]: the native engine against the port's device envs on the "
+          f"card, 64 envs each up to its first end, max abs err {worst} (tol 1e-4 + 1e-4 "
+          f"relative)", flush=True)
+
+    # b. the counting fixture of tests/test_host_pipeline.py on CUDA tensors: pipelined
+    # equals serial exactly, and each step submits A, collects B, submits B, collects A
+    class CountingHost(HostVecEnv):
+        def __init__(self, n, log, name):
+            self.num_envs, self.log, self.name = n, log, name
+            self.observation_space = Box(-np.inf, np.inf, (1,), np.float32)
+            self.action_space = Box(-10.0, 10.0, (1,), np.float32)
+            self._c = np.zeros((n, 1), np.float32)
+
+        def reset(self, seed=None):
+            self._c[:] = 0.0
+            return self._c.copy()
+
+        def step_async(self, actions):
+            self.log.append(("submit", self.name))
+            self._pending = np.asarray(actions, np.float32).reshape(self.num_envs, 1)
+
+        def step_wait(self):
+            self.log.append(("collect", self.name))
+            self._c = self._c + self._pending + 1.0
+            rew, done = self._c[:, 0].copy(), self._c[:, 0] >= 7.0
+            obs, infos = self._c.copy(), [{} for _ in range(self.num_envs)]
+            for i in np.flatnonzero(done):
+                infos[i]["terminal_observation"] = obs[i].copy()
+                self._c[i] = obs[i] = 0.0
+            return obs, rew, done, infos
+
+        def step(self, actions):
+            self.step_async(actions)
+            return self.step_wait()
+
+    class StubPolicy:
+        is_recurrent = False
+        pdtype = SimpleNamespace(sample_shape=(1,), sample_dtype=torch.float32)
+
+        def pack(self):
+            return None
+
+        def step(self, obs, draws, packed=None):
+            return torch.remainder(obs, 2.0) * 0.25, obs[..., 0] * 0.1, obs[..., 0] * 0.01 + 1
+
+        def value(self, obs, packed=None, rnn_state=None, mask=None):
+            return obs[..., 0] * 0.1
+
+    log = []
+    chain = lambda n, name: VecMonitor(CallbackVecEnv(CountingHost(n, log, name), device=dev))
+    draws = Draws(0, dev)
+    fused = chain(8, "F")
+    obs, st = fused.reset(draws)
+    _, _, _, traj_f, last_f, _ = run_rollout(StubPolicy(), fused, draws, st, obs,
+                                             torch.zeros(8, dtype=torch.bool, device=dev), 12)
+    pair = PipelinedHostVecPair(chain(4, "A"), chain(4, "B"))
+    ps = init_pipe_state(StubPolicy(), pair, draws, pair.a.reset(draws), pair.b.reset(draws))
+    log.clear()
+    ps, traj_p, last_p = run_rollout_pipelined(StubPolicy(), pair, draws, ps, 12)
+    fields = ("obs", "actions", "values", "neglogps", "rewards", "dones", "rnn_masks")
+    require(traj_p.obs.is_cuda and all(torch.equal(getattr(traj_f, f), getattr(traj_p, f))
+                                       for f in fields) and torch.equal(last_f, last_p),
+            "the pipelined counting rollout differs from the serial one")
+    body = [("submit", "A"), ("collect", "B"), ("submit", "B"), ("collect", "A")]
+    require(log == body * 12, f"the pipelined order is {log[:8]}")
+    print(f"main path 9b [{card}]: the counting fixture on cuda, 2 groups of 4 pipelined "
+          f"against 8 serial over 12 steps: every field and the last value equal, "
+          f"{int(traj_p.dones.sum())} dones; the order submit A, collect B, submit B, "
+          f"collect A at each of the 12 steps", flush=True)
+
+    # the raw pool and the host loops, at bench.py's 8 envs, a pipelined group of 512 and
+    # 1024: the C call alone, the pool's step (the C call and _collect's dict a env), and
+    # CallbackVecEnv's step from and to the card (_format_results, the copies), with zero
+    # actions (bench.py's _raw_host_fps), 100 steps of each in turn, 5 rounds, the median
+    def per_step_us(fns: dict, iters=100, rounds=5) -> dict:
+        for fn in fns.values():
+            fn()
+        readings = {k: [] for k in fns}
+        for _ in range(rounds):
+            for k, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                readings[k].append((time.perf_counter() - t0) / iters * 1e6)
+        return {k: float(np.median(v)) for k, v in readings.items()}
+
+    raw = {}
+    for n in (8, 512, 1024):
+        pool = native.NativeVecEnv("CartPole-v1", n)
+        pool.reset(0)
+        zeros = np.zeros((n,), np.float32)
+        acts = pool._actions(zeros)
+        venv = CallbackVecEnv(pool, device=dev)
+        dev_acts = torch.zeros(n, dtype=torch.int64, device=dev)
+        us = per_step_us({
+            "c": lambda: pool._lib.btenv_step(pool._handle, acts, pool._obs, pool._rew,
+                                              pool._done, pool._terminal_obs),
+            "pool": lambda: pool.step(zeros),
+            "callback": lambda: venv.step(None, 0, dev_acts)})
+        c_us, pool_us, cb_us = us["c"], us["pool"], us["callback"]
+        venv.close()
+        raw[n] = n / pool_us * 1e6
+        print(f"main path 9c [{card}]: native CartPole-v1 pool of {n}: {raw[n]:.0f} raw "
+              f"env-steps/s (pool.step {pool_us:.1f} us a step: the C call {c_us:.1f} us, "
+              f"_collect's dicts {pool_us - c_us:.1f} us); CallbackVecEnv.step from and to "
+              f"the card {cb_us:.1f} us a step ({n / cb_us * 1e6:.0f} env-steps/s): the C call "
+              f"{c_us / cb_us:.1%}, _collect {(pool_us - c_us) / cb_us:.1%}, _format_results "
+              f"with the copies {(cb_us - pool_us) / cb_us:.1%}", flush=True)
+
+    # c. bench.py:288-299: ppo2 mlp on native:CartPole-v1, 8 envs x 64 steps, 4 epochs x
+    # 4 minibatches, fused and pipelined, 4 updates each; steady rate over updates 2-4
+    hp = dict(network="mlp", nsteps=64, nminibatches=4, noptepochs=4, seed=0,
+              log_interval=1)
+    rates = {}
+    for mode, pipeline in (("fused", False), ("pipelined", True)):
+        recorder = recording_output()
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+        reset_counts()
+        start = time.perf_counter()
+        model = learn(env_id="native:CartPole-v1", num_envs=8, total_timesteps=4 * 512,
+                      pipeline=pipeline, **hp)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        logger.reset()
+        counts[f"native_{mode}"] = c = read_counts()
+        require(c["take_rows"] == 96, f"ppo2 {mode} on native CartPole launched {c}, "
+                "expected 96 take_rows (6 fields x 4 epochs x 4 updates)")
+        rows = recorder.rows
+        require(len(rows) == 4 and all(math.isfinite(float(r[k])) for r in rows
+                                       for k in r if k.startswith("loss/")),
+                f"ppo2 {mode}: {len(rows)} rows or a loss not finite")
+        t = [float(r["misc/time_elapsed"]) for r in rows]
+        rates[mode] = 3 * 512 / (t[3] - t[0])
+        pipelined = type(model.state.env_state).__name__ == "PipeState"
+        require(pipelined == pipeline, f"ppo2 {mode}: the env state is "
+                f"{type(model.state.env_state).__name__}")
+        print(f"main path 9c [{card}]: ppo2 mlp on native:CartPole-v1 {mode}, 8 x 64, 4 x 4, "
+              f"4 updates: launches {c}; steady {rates[mode]:.0f} env-steps/s (updates 2-4); "
+              f"{elapsed:.2f} s with set-up; update times {[round(b - a, 4) for a, b in zip([0] + t, t)]} "
+              f"s; eprewmean {[r['eprewmean'] for r in rows]}", flush=True)
+    print(f"main path 9c [{card}]: raw pool of 8 {raw[8]:.0f} env-steps/s; pipelined / fused "
+          f"{rates['pipelined'] / rates['fused']:.3f}", flush=True)
+
+    # d. run.main at 1024 native envs x 128 steps, pipelined (the auto rule), 2 updates,
+    # --save_path and --play, then the --load_path round trip; and the same learn fused
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    try:
+        nenv, nsteps = 1024, 128
+        nbatch = nenv * nsteps
+        model_path = os.path.join(tmp, "ppo2_native.pt")
+        argv = ["--alg=ppo2", "--env=native:CartPole-v1", "--network=mlp", "--seed=0",
+                f"--num_env={nenv}", f"--nsteps={nsteps}", "--nminibatches=4",
+                "--noptepochs=4", "--log_interval=1", "--play"]
+        reset_counts()
+        start = time.perf_counter()
+        model_a, out_a = run_cli(argv + [f"--num_timesteps={2 * nbatch}",
+                                         f"--save_path={model_path}",
+                                         f"--log_path={os.path.join(tmp, 'a')}"])
+        elapsed = time.perf_counter() - start
+        counts["cli_native"] = c = read_counts()
+        require(c["take_rows"] == 48, f"run.main on native:CartPole-v1 launched {c}, expected "
+                "48 take_rows (6 fields x 4 epochs x 2 updates)")
+        require(type(model_a.state.env_state).__name__ == "PipeState",
+                "run.main at 1024 native envs did not pipeline")
+        with open(os.path.join(tmp, "a", "progress.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        require(len(rows) == 2 and all(math.isfinite(float(v)) for r in rows
+                                       for k, v in r.items() if k.startswith("loss/")),
+                f"run.main on native: {len(rows)} rows or a loss not finite")
+        t = [float(r["misc/time_elapsed"]) for r in rows]
+        rate_p = nbatch / (t[1] - t[0])
+        report_a = play_report(out_a)
+        model_b, out_b = run_cli(argv + ["--num_timesteps=0", f"--load_path={model_path}",
+                                         f"--log_path={os.path.join(tmp, 'b')}"])
+        sa, sb = model_a.policy.module.state_dict(), model_b.policy.module.state_dict()
+        require(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa),
+                "run.main on native: the loaded params differ from the saved ones")
+        require(play_report(out_b) == report_a, f"run.main on native: play after load "
+                f"{play_report(out_b)}, after training {report_a}")
+        print(f"main path 9d [{card}]: run.main ppo2 mlp on native:CartPole-v1, {nenv} x "
+              f"{nsteps} pipelined (2 groups of 512), 2 updates: launches {c}; update 2 "
+              f"{rate_p:.0f} env-steps/s (update 1 {nbatch / t[0]:.0f} with set-up); "
+              f"loss/policy_loss {[r['loss/policy_loss'] for r in rows]}; run.main with save "
+              f"and play {elapsed:.2f} s; the load round trip bit for bit, {report_a}",
+              flush=True)
+        del model_a, model_b
+
+        recorder = recording_output()
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+        reset_counts()
+        learn(env_id="native:CartPole-v1", num_envs=nenv, total_timesteps=2 * nbatch,
+              pipeline=False, **dict(hp, nsteps=nsteps))
+        torch.cuda.synchronize()
+        logger.reset()
+        counts["native_fused_1024"] = c = read_counts()
+        require(c["take_rows"] == 48, f"fused ppo2 at 1024 native envs launched {c}")
+        t = [float(r["misc/time_elapsed"]) for r in recorder.rows]
+        rate_f = nbatch / (t[1] - t[0])
+        print(f"main path 9d [{card}]: the same 2 updates fused (pipeline=False): launches "
+              f"{c}; update 2 {rate_f:.0f} env-steps/s; pipelined / fused "
+              f"{rate_p / rate_f:.3f}", flush=True)
+
+        # e. one pipelined update of (d)'s configuration profiled, after one that times
+        # group A's native step on its worker thread against group B's device window (from
+        # B's collect to its actions back on the host), both on the host's clock
+        pair = build_env_pair("native:CartPole-v1", nenv, device=dev)
+        policy = build_policy(pair.observation_space, pair.action_space, "mlp", device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        opt = ClipAdam(policy.module.parameters(), 0.5, eps=1e-5)
+        draws = Draws(0, dev)
+        reset_a, reset_b = pair.a.reset(draws), pair.b.reset(draws)
+        state = PPOTrainState(env_state=init_pipe_state(policy, pair, draws, reset_a, reset_b),
+                              obs=reset_a[0],
+                              last_done=torch.zeros(nenv, dtype=torch.bool, device=dev))
+        update_fn = make_update_fn(policy, pair, opt, nsteps=nsteps, nminibatches=4,
+                                   noptepochs=4, gamma=0.99, lam=0.95, ent_coef=0.0,
+                                   vf_coef=0.5, lr_fn=lambda f: 3e-4 * f,
+                                   cliprange_fn=lambda f: 0.2, nupdates=3, pipelined=True)
+        state, _ = update_fn(state, draws)  # warm
+        lib_a = pair.base_a.host._lib
+        marks = {k: [] for k in ("submit_a", "a_start", "a_end", "b_collected", "b_acted")}
+
+        class TimedLib:
+            def __getattr__(self, name):
+                return getattr(lib_a, name)
+
+            def btenv_step(self, *args):
+                marks["a_start"].append(time.perf_counter())
+                lib_a.btenv_step(*args)
+                marks["a_end"].append(time.perf_counter())
+
+        swap_ab, submit_a, submit_b = pair.swap_ab, pair.base_a._host_submit, \
+            pair.base_b._host_submit
+
+        def timed_submit_a(actions):
+            marks["submit_a"].append(time.perf_counter())
+            submit_a(actions)
+
+        def timed_swap_ab(actions):
+            out = swap_ab(actions)
+            marks["b_collected"].append(time.perf_counter())
+            return out
+
+        def timed_submit_b(actions):
+            submit_b(actions)  # the copy of B's actions waits for B's forward pass
+            marks["b_acted"].append(time.perf_counter())
+
+        pair.base_a.host._lib = TimedLib()
+        pair.base_a._host_submit, pair.swap_ab = timed_submit_a, timed_swap_ab
+        pair.base_b._host_submit = timed_submit_b
+        start = time.perf_counter()
+        state, _ = update_fn(state, draws)
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - start
+        pair.base_a.host._lib = lib_a
+        pair.base_a._host_submit, pair.swap_ab = submit_a, swap_ab
+        pair.base_b._host_submit = submit_b
+        a_start, a_end = np.array(marks["a_start"]), np.array(marks["a_end"])
+        submit = np.array(marks["submit_a"])
+        b0, b1 = np.array(marks["b_collected"]), np.array(marks["b_acted"])
+        require(len(a_start) == len(b0) == len(b1) == nsteps,
+                f"timed {len(a_start)} A steps and {len(b0)} B windows, expected {nsteps}")
+        overlap = np.clip(np.minimum(a_end, b1) - np.maximum(a_start, b0), 0, None)
+        print(f"main path 9e [{card}]: one timed pipelined update, {timed_s:.3f} s: group A's "
+              f"native step {np.mean(a_end - a_start) * 1e6:.1f} us (median "
+              f"{np.median(a_end - a_start) * 1e6:.1f}), starting {np.median(a_start - submit) * 1e6:.1f} "
+              f"us after its submit (median); group B's window {np.mean(b1 - b0) * 1e6:.1f} us; "
+              f"A's step within B's window {overlap.sum() / (a_end - a_start).sum():.1%} of its "
+              f"time, in {int((overlap > 0).sum())} of {nsteps} steps", flush=True)
+
+        trace_dir = os.path.join(tmp, "trace")
+        label = "ppo2 pipelined update"
+        reset_counts()
+        with profiler.trace(trace_dir) as prof:
+            start = time.perf_counter()
+            with profiler.annotate(label):
+                state, metrics = update_fn(state, draws)
+                float(metrics["policy_loss"])
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - start
+        counts["native_traced"] = c = read_counts()
+        pair.close()
+        # the device's kernels, copies and fills; the annotation's range on the device
+        # timeline (which spans its first to its last kernel) is none of them
+        device_events = [e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.name != label and not getattr(e, "is_user_annotation", False)]
+        require(any(e.name == label for e in prof.events()),
+                "the trace holds no range of profiler.annotate")
+        kernels_in_trace = [e for e in device_events
+                            if not e.name.startswith(("Memcpy", "Memset"))]
+        k2_in_trace = [e for e in kernels_in_trace if "gather_rows_kernel" in e.name]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in device_events)
+        busy, cur_start, cur_end = 0.0, None, None
+        for s0, s1 in spans:
+            if cur_end is None or s0 > cur_end:
+                busy += 0.0 if cur_end is None else cur_end - cur_start
+                cur_start, cur_end = s0, s1
+            else:
+                cur_end = max(cur_end, s1)
+        busy += 0.0 if cur_end is None else cur_end - cur_start
+        trace_files = os.listdir(trace_dir)
+        require(len(trace_files) == 1 and c["take_rows"] == 24,
+                f"the profiled update wrote {trace_files} and launched {c}")
+        require(len(k2_in_trace) == 24, f"the trace holds {len(k2_in_trace)} gather kernels "
+                f"of the update's 24 ({len(kernels_in_trace)} kernels in all)")
+        dur = lambda e: e.time_range.end - e.time_range.start
+        k2_us = sum(dur(e) for e in k2_in_trace)
+        kernel_us = sum(dur(e) for e in kernels_in_trace)
+        copy_us = sum(dur(e) for e in device_events) - kernel_us
+        longest = sorted(device_events, key=dur)[-3:]
+        print(f"main path 9e [{card}]: profiler.trace of one pipelined update ({traced_s:.3f} "
+              f"s traced): {len(kernels_in_trace)} kernels, {kernel_us / 1e3:.2f} ms of device "
+              f"time; {len(device_events) - len(kernels_in_trace)} copies and fills, "
+              f"{copy_us / 1e3:.2f} ms; {len(k2_in_trace)} take_rows, {k2_us / 1e3:.3f} ms; the "
+              f"device busy (the union of those intervals) {busy / 1e6 / traced_s:.1%} of the "
+              f"update's wall time, the kernels alone {kernel_us / 1e6 / traced_s:.1%}; longest "
+              f"{[(e.name[:40], round(dur(e), 1)) for e in longest]} us; the Chrome trace "
+              f"{os.path.getsize(os.path.join(trace_dir, trace_files[0])) / 2**20:.1f} MiB",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # K2 at this path's shapes: bench.py's 8 x 64 batch, obs f32 (512, 4) and an f32
+    # (512,) field by a 512-row permutation (the 1024 x 128 batch is path 3d's shapes)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    perm = torch.randperm(512, device=dev, generator=gen)
+    shapes = []
+    for x in (torch.randn((512, 4), device=dev, generator=gen),
+              torch.randn((512,), device=dev, generator=gen)):
+        require(torch.equal(take_rows(x, perm), x[perm]), "take_rows at 8 x 64 differs")
+        t, readings = turns_ms({"kernel": lambda: take_rows(x, perm), "plain": lambda: x[perm],
+                                "index_select": lambda: x.index_select(0, perm)}, 50, rounds=3)
+        bms, by = bound_ms(0, 2 * x.numel() * 4 + perm.numel() * 8)
+        shape = f"bench.py's 8 x 64 batch: f32 {tuple(x.shape)} by (512,) int64"
+        shapes.append(dict(shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"],
+                           bound_ms=bms, bound_by=by, library_ms=t["index_select"]))
+        print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, plain "
+              f"x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}); in turns: {lead(readings, 'kernel', 'index_select')} "
+              f"[{card}]", flush=True)
+    kernels["take_rows"]["path9_shapes"] = shapes
+
+
 def main() -> int:
     with Phase("device"):
         if not torch.cuda.is_available():
@@ -1969,13 +2391,17 @@ def main() -> int:
                   f"ms, bound {bms:.6f} ms ({by}); in turns: "
                   f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
 
+    with Phase("main path 9: the host env path (native engine, pipelined ppo2, profiler)"):
+        host_env_path(dev, card, kernels, counts, reset_counts, read_counts, run_cli,
+                      play_report, RecordingOutput)
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape",
-             "path7_shapes", "path8_shapes")
+             "path7_shapes", "path8_shapes", "path9_shapes")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

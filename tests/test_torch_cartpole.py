@@ -168,20 +168,36 @@ def test_vec_rollout_matches_jax(version):
 
 def test_registry_types_and_unported_ids():
     """Every id has the JAX registry's env type; the port registers every device env of
-    the JAX package, PointReach-v0 among them, and host ids raise NotImplementedError
-    naming item 8."""
+    the JAX package, PointReach-v0 among them. make_env serves device ids only, as the
+    JAX package's does, and its error for another id points to build_env, which builds
+    native: ids on the C++ engine and gymnasium ids on a host pool (the chain a mujoco
+    id gets: VecNormalize over the monitor)."""
     from baselines_tpu.envs import registry as jax_registry
+    from baselines_tpu_torch.algos.common import build_env
+    from baselines_tpu_torch.core.rng import Draws
+    from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+    from baselines_tpu_torch.envs.vec import VecNormalize
 
     for env_id in jax_registry.env_names() + ["HalfCheetah-v4", "PongNoFrameskip-v4",
                                               "FetchReach-v2", "native:CartPole-v1"]:
         assert registry.get_env_type(env_id) == jax_registry.get_env_type(env_id), env_id
     assert registry.is_torch_env("CartPole-v1") and registry.is_torch_env("PointReach-v0")
     assert set(registry.env_names()) == set(jax_registry.env_names())
-    for env_id, item in (("Pendulum-v0", "item 8"), ("HalfCheetah-v4", "item 8"),
-                         ("native:CartPole-v1", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for env_id in ("Pendulum-v0", "HalfCheetah-v4", "native:CartPole-v1"):
+        with pytest.raises(ValueError, match="build_env"):
             registry.make_env(env_id)
-    for env_id in jax_registry.env_names():
-        if not registry.is_torch_env(env_id):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                registry.make_env(env_id)
+    for env_id, n, normalized in (("native:CartPole-v1", 2, False),
+                                  ("HalfCheetah-v4", 1, True)):
+        venv = build_env(env_id, n, device="cpu")
+        try:
+            assert isinstance(venv, VecNormalize) == normalized, env_id
+            base = venv.venv if normalized else venv
+            assert isinstance(base.venv, CallbackVecEnv), env_id  # under the monitor
+            obs, state = venv.reset(Draws(0, "cpu"))
+            assert obs.dtype == torch.float32 and obs.shape[0] == n
+            action = torch.zeros((n,) + venv.action_space.shape,
+                                 dtype=torch.int64 if not venv.action_space.shape else torch.float32)
+            obs, state, rew, done, info = venv.step(None, state, action)
+            assert rew.shape == (n,) and "terminal_obs" in info
+        finally:
+            venv.close()

@@ -5,6 +5,7 @@ relabeled samples bit for bit from the same draws, and the slice as a whole, one
 cycle of each side from the same weights (flax's init moved by noise, carried across by
 convert.py) with the same draws, rebuilt from the JAX learner's key splits."""
 
+import importlib.util
 import json
 
 import jax
@@ -311,8 +312,9 @@ def test_cycle_losses_match_jax(cycle_runs):
 def test_learn_logs_saves_and_plays_through_the_cli(tmp_path):
     """run.main on the CPU at a tiny size: the JAX keys logged with the losses and
     params.json written; --save_path and --play on dict observations; --load_path of
-    that file plays the same report; bc_loss with q_filter on demonstrations trains;
-    host goal envs and a mesh raise naming their items."""
+    that file plays the same report; bc_loss with q_filter on demonstrations trains; a
+    host goal env (gymnasium-robotics' FetchReach-v4, where installed) builds, and a
+    mesh raises naming its item."""
     argv = ["--alg=her", "--env=PointReach-v0", "--num_env=4", "--n_cycles=2",
             "--n_batches=2", "--batch_size=16", "--num_hidden=16", "--seed=0",
             "--device=cpu", "--play"]
@@ -353,7 +355,8 @@ def test_learn_logs_saves_and_plays_through_the_cli(tmp_path):
     finally:
         reset()
     assert all(bool(torch.isfinite(p).all()) for p in m.policy.module.parameters())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        her.learn(env_id="FetchReach-v2", total_timesteps=0, device="cpu")
+    if importlib.util.find_spec("gymnasium_robotics") is not None:
+        m = her.learn(env_id="FetchReach-v4", total_timesteps=0, num_envs=2, device="cpu")
+        assert m.state.obs["observation"].shape == (2, 10)
     with pytest.raises(NotImplementedError, match="item 7"):
         her.learn(env_id="PointReach-v0", total_timesteps=0, device="cpu", mesh=object())

@@ -1,7 +1,8 @@
 """The port, chip_smoke.py and sampler_grid.py stand without JAX: in a process where
-jax, flax, optax and baselines_tpu cannot be imported, every module of
-baselines_tpu_torch imports, and chip_smoke.py and sampler_grid.py, finding no card,
-exit nonzero with their "no CUDA device" message rather than an ImportError."""
+jax, flax, optax and baselines_tpu cannot be imported, and neither can gymnasium,
+gymnasium_robotics, mujoco and cloudpickle (which the machine with the card lacks), every
+module of baselines_tpu_torch imports, and chip_smoke.py and sampler_grid.py, finding no
+card, exit nonzero with their "no CUDA device" message rather than an ImportError."""
 
 import os
 import subprocess
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = "import sys\nfor m in ('jax', 'flax', 'optax', 'baselines_tpu'):\n    sys.modules[m] = None\n"
+BLOCKED = ("import sys\nfor m in ('jax', 'flax', 'optax', 'baselines_tpu', 'gymnasium', "
+           "'gymnasium_robotics', 'mujoco', 'cloudpickle'):\n    sys.modules[m] = None\n")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -39,7 +41,9 @@ def test_every_port_module_imports_without_jax():
                  "algos.her.her", "data.her_buffer", "envs.goal.point_reach",
                  "algos.gail.gail", "algos.gail.adversary", "algos.gail.behavior_clone",
                  "algos.gail.dataset", "algos.acktr.acktr", "algos.acktr.kfac",
-                 "algos.acer.acer", "data.frame_chunk"):
+                 "algos.acer.acer", "data.frame_chunk", "native", "envs.gym_bridge",
+                 "envs.callback_env", "envs.host_pipeline", "core.profiler",
+                 "core.tile_images"):
         assert f"baselines_tpu_torch.{name}" in imported, name
 
 

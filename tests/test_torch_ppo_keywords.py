@@ -86,15 +86,17 @@ def test_checkpoint_keyword_works(tmp_path, option):
     assert type(model.policy.module.network).__name__ == "MLP"  # the JAX default network
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"pipeline": True}, "item 8"),
+@pytest.mark.parametrize("kwargs,message", [
+    ({"pipeline": True}, "host-backed env"),
     ({"mesh": object()}, "Mesh"),
-])
-def test_unported_keyword_raises_not_implemented(kwargs, item):
-    """Raised before any env or network is built: ``pipeline`` names its Queue 1 item;
-    ``mesh``, ported, takes only a ``Mesh`` and raises TypeError for anything else."""
-    error = TypeError if "mesh" in kwargs else NotImplementedError
-    with pytest.raises(error, match=item):
+], ids=["kwargs0-item 8", "kwargs1-Mesh"])
+def test_unported_keyword_raises_not_implemented(kwargs, message):
+    """Both ported: ``pipeline=True`` on a device env fails as the JAX package's
+    ``base_callback_env`` assertion does (pipelining needs a host-backed env); ``mesh``
+    takes only a ``Mesh`` and raises TypeError, before any env is built, for anything
+    else."""
+    error = TypeError if "mesh" in kwargs else AssertionError
+    with pytest.raises(error, match=message):
         learn(env_id="AtariSim-v0", total_timesteps=0, device="cpu", **kwargs)
 
 
