@@ -31,6 +31,19 @@ launches, six with ``dedup_frames``.
 
 Draws in order: an on-policy update's rollout (the action noise, then the env's, a
 step), then for each replay update its chunk indices.
+
+Under a data-parallel mesh (``mesh``) each rank steps ``num_envs / size`` envs, as the
+JAX package's mesh run shards the rollout (acer.py:394-397), and the replay is
+replicated: each on-policy chunk is gathered from every rank in env order, in its
+storage layout and one call, and added to every rank's ring; a replay update's chunk
+indices are drawn for all ``num_envs`` rows at once and each rank reads its own rows
+(the ``ShardedDraws`` of the env axis). Each rank trains on its rows, and the gradients
+are averaged over the ranks. That is the one-process step because every term of
+``train_chunk`` is a mean over equal per-env rows (Retrace runs along each env's time
+axis, the trust region adjusts each row), and the ``(t * n)`` scalings, taken with the
+rank's ``n``, cancel against the rank's means, so the average over the ranks divides by
+the whole ``t * N``. The average policy then moves alike on every rank. The metrics are
+the rank's shares, reduced on the updates that log.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import copy
 import math
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
@@ -47,12 +60,13 @@ import torch.nn.functional as F
 
 from baselines_tpu_torch.algos.a2c.a2c import a2c_lr
 from baselines_tpu_torch.algos.common import (ClipRMSProp, Model, build_env, learner_device,
-                                              not_ported)
+                                              mesh_metrics, update_metrics)
 from baselines_tpu_torch.core import logger
-from baselines_tpu_torch.core.math import explained_variance
-from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.core.rng import Draws, ShardedDraws
 from baselines_tpu_torch.data.frame_chunk import compress_frames, decompress_frames
 from baselines_tpu_torch.data.replay import ReplayBuffer, ReplayState
+from baselines_tpu_torch.distributed.collectives import all_gather_fields
+from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.envs.spaces import Discrete, torch_dtype
 from baselines_tpu_torch.envs.vec import VecMonitor
 from baselines_tpu_torch.nn.policy import build_policy
@@ -127,8 +141,13 @@ class ChunkReplay:
             out["obs"] = decompress_frames(stored["obs0"], frames, stored["dones"], self.dedup)
         return out
 
-    def add(self, state: ReplayState, chunk: dict) -> ReplayState:
-        return self.buffer.add_batch(state, self.to_stored(chunk))
+    def add(self, state: ReplayState, chunk: dict, mesh=None) -> ReplayState:
+        """Add an env-major chunk; under a ``mesh`` every rank's chunk, gathered in the
+        storage layout in one call."""
+        stored = self.to_stored(chunk)
+        if mesh is not None:
+            stored = all_gather_fields(stored, mesh)
+        return self.buffer.add_batch(state, stored)
 
     def sample(self, state: ReplayState, draws, n: int) -> dict:
         return self.to_full(self.buffer.sample(state, draws, n)[0])
@@ -138,7 +157,10 @@ class ChunkReplay:
 class ACERTrainState:
     """What an update carries to the next: the env, the replay, the average policy (a
     module of the policy's architecture) and the update count; the params live in the
-    policy's module and the RMSProp moments in the optimizer."""
+    policy's module and the RMSProp moments in the optimizer. Under a mesh ``env_state``
+    and ``obs`` are the rank's envs'; the replay is replicated."""
+
+    replicated_fields: ClassVar = ("replay",)
 
     env_state: Any
     obs: torch.Tensor
@@ -172,9 +194,11 @@ def rollout_chunk(policy, venv, draws, env_state, obs, nsteps: int):
 
 def make_train_chunk(policy, opt: ClipRMSProp, *, nsteps: int, q_coef: float,
                      ent_coef: float, gamma: float, c: float, trust_region: bool,
-                     alpha: float, delta: float):
+                     alpha: float, delta: float, mesh=None):
     """``train_chunk(avg, lr_now, chunk) -> metrics``: one step of the params on an
-    env-major (N, T) chunk and the average policy's update (acer.py:226-315)."""
+    env-major (N, T) chunk and the average policy's update (acer.py:226-315). Under a
+    ``mesh`` the chunk is the rank's rows, ``opt`` averages the gradients over the
+    ranks, and the metrics are the rank's shares."""
     module = policy.module
     params = opt.params
     nact = policy.ac_space.n
@@ -230,34 +254,38 @@ def make_train_chunk(policy, opt: ClipRMSProp, *, nsteps: int, q_coef: float,
         with torch.no_grad():
             for pa, p in zip(avg.parameters(), params):
                 pa.copy_(alpha * pa + (1 - alpha) * p)
-            return {"loss_policy": loss_policy.detach(),
-                    "loss_q": 0.5 * torch.mean(torch.square(qret - q_i)),
-                    "entropy": torch.mean(-torch.sum(fd * torch.log(fd + EPS), dim=1)),
-                    "ev_q": explained_variance(q_i, qret)}
+            return update_metrics({
+                "loss_policy": loss_policy.detach(),
+                "loss_q": 0.5 * torch.mean(torch.square(qret - q_i)),
+                "entropy": torch.mean(-torch.sum(fd * torch.log(fd + EPS), dim=1))},
+                q_i, qret, mesh, ev_name="ev_q")
 
     return train_chunk
 
 
 def make_update_fns(policy, venv, opt: ClipRMSProp, replay: ChunkReplay, *, nsteps: int,
-                    lr: float, lrschedule: str, nupdates: int, **train_kwargs):
+                    lr: float, lrschedule: str, nupdates: int, mesh=None, **train_kwargs):
     """(``onpolicy_update(state, draws)``, ``replay_update(state, draws)``), each ->
     (state, metrics) (acer.py:344-374): a rollout chunk added to the replay and trained
     on; a replayed chunk of as many envs trained on. Both take the learning rate of the
-    state's update count."""
-    train_chunk = make_train_chunk(policy, opt, nsteps=nsteps, **train_kwargs)
+    state's update count. Under a ``mesh`` (``draws`` a ``ShardedDraws``) the rollout and
+    the replayed rows are the rank's and every rank's chunk goes to the replay."""
+    train_chunk = make_train_chunk(policy, opt, nsteps=nsteps, mesh=mesh, **train_kwargs)
     nenvs = venv.num_envs
 
     def onpolicy_update(state: ACERTrainState, draws):
         lr_now = a2c_lr(lr, lrschedule, state.update_idx, nupdates)
         env_state, obs, chunk = rollout_chunk(policy, venv, draws, state.env_state, state.obs,
                                               nsteps)
-        buf = replay.add(state.replay, chunk)
+        env_state = VecMonitor.sync_stats(env_state, mesh)
+        buf = replay.add(state.replay, chunk, mesh)
         metrics = train_chunk(state.avg, lr_now, chunk)
         return ACERTrainState(env_state=env_state, obs=obs, replay=buf, avg=state.avg,
                               update_idx=state.update_idx + 1), metrics
 
     def replay_update(state: ACERTrainState, draws):
         lr_now = a2c_lr(lr, lrschedule, state.update_idx, nupdates)
+        # under a mesh the rank's rows of the whole sample's chunk indices
         metrics = train_chunk(state.avg, lr_now, replay.sample(state.replay, draws, nenvs))
         return state, metrics
 
@@ -300,21 +328,24 @@ def learn(
     """acer.learn (acer.py:78-116 signature and defaults), logging the keys of
     acer.py:417-421. ``dedup_frames`` = k stores frames rather than k-frame stacks and
     restacks them on the sample; it needs k-frame-stacked observations (``frame_stack``
-    = k here, or a stacked ``env``). ``device`` is the card unless the caller passes
-    ``"cpu"``; the remaining keywords go to the network."""
-    if mesh is not None:
-        not_ported("acer", "mesh", "item 7 (acer under a mesh)")
+    = k here, or a stacked ``env``). ``mesh``, a ``Mesh`` from ``distributed.make_mesh``,
+    trains data parallel: every rank calls ``learn`` with the same arguments and steps
+    ``num_envs / size`` of the envs on the mesh's device (an ``env`` given is the rank's).
+    ``device`` is the card unless the caller passes ``"cpu"``; the remaining keywords go
+    to the network."""
+    check_mesh(mesh, "acer's mesh")
     if lrschedule not in ("linear", "constant"):
         raise ValueError(f"lrschedule must be 'linear' or 'constant', got {lrschedule!r}")
-    device = learner_device(None, device)
+    device = learner_device(mesh, device)
     rng = np.random.RandomState(seed if seed is not None else 0)  # the replay counts
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
-    venv = env if env is not None else build_env(env_id, num_envs, device=device,
-                                                 frame_stack=frame_stack, **(env_kwargs or {}))
+    venv = env if env is not None else build_env(
+        env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh,
+        frame_stack=frame_stack, **(env_kwargs or {}))
     if not isinstance(venv.action_space, Discrete):
         raise ValueError(f"acer needs Discrete actions, got {venv.action_space!r}")
-    nenvs = venv.num_envs
+    nenvs = venv.num_envs * (1 if mesh is None else mesh.size)
     nupdates = max(total_timesteps // (nenvs * nsteps), 1) if total_timesteps > 0 else 0
 
     policy = build_policy(venv.observation_space, venv.action_space, network, device=device,
@@ -324,18 +355,18 @@ def learn(
         raise ValueError("recurrent ACER is not supported, as in the JAX package: stale "
                          "stored carries bias the Retrace targets; use ppo2 or a2c")
     opt = ClipRMSProp(policy.module.parameters(), max_grad_norm, decay=rprop_alpha,
-                      eps=rprop_epsilon)
+                      eps=rprop_epsilon, mesh=mesh)
     replay = ChunkReplay(max(buffer_size // nsteps, 1), nsteps, venv.observation_space,
                          venv.action_space.n, dedup_frames)
-    draws = Draws(seed, device)
+    draws = Draws(seed, device) if mesh is None else ShardedDraws(Draws(seed, device), mesh)
     obs, env_state = venv.reset(draws)
     state = ACERTrainState(env_state=env_state, obs=obs, replay=replay.init(device),
                            avg=copy.deepcopy(policy.module))
     onpolicy_update, replay_update = make_update_fns(
         policy, venv, opt, replay, nsteps=nsteps, lr=lr, lrschedule=lrschedule,
-        nupdates=nupdates, q_coef=q_coef, ent_coef=ent_coef, gamma=gamma, c=c,
+        nupdates=nupdates, mesh=mesh, q_coef=q_coef, ent_coef=ent_coef, gamma=gamma, c=c,
         trust_region=trust_region, alpha=alpha, delta=delta)
-    model = Model(policy, state, opt, draws)
+    model = Model(policy, state, opt, draws, mesh)
     if load_path is not None:
         model.load(load_path)
 
@@ -347,6 +378,7 @@ def learn(
                 state, _ = replay_update(state, draws)
         model.state = state
         if log_interval and (update % log_interval == 0 or update == 1):
+            metrics = mesh_metrics(metrics, mesh, ev_name="ev_q")
             stats = VecMonitor.get_stats(state.env_state)
             logger.logkv("total_timesteps", update * nenvs * nsteps)
             logger.logkv("fps", int(update * nenvs * nsteps / (time.time() - tstart)))

@@ -27,6 +27,16 @@ min(1, sqrt(kfac_clip / max(vFv lr^2, 1e-12))), the raw gradient instead for the
 ``cold_iter`` updates, the clip to ``max_grad_norm``, then momentum SGD,
 ``p -= lr * (momentum * m + d)``, with the learning rate annealed linearly by default.
 Draws in order: the rollout's, then the Fisher loss's noise.
+
+Under a data-parallel mesh (``mesh``) each rank steps ``num_envs / size`` envs and
+computes the one-process update, as the JAX package's mesh run does (acktr.py:527-530):
+the gradients of the training loss are averaged over the ranks; the Fisher loss is the
+rank's share of the whole batch's mean and ``layer_stats`` scales the rows by the whole
+batch's size, so that each row is a sample's own gradient, and the factor moments of
+the ranks' equal shares are averaged (``kfac.update_stats``); the Fisher noise is drawn
+for the whole batch from the replicated generator, each rank taking its env columns.
+Every rank then decomposes, preconditions, clips and steps on the same values. The
+metrics are the rank's shares, reduced on the updates that log.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
@@ -44,12 +54,14 @@ import torch.nn.functional as F
 from baselines_tpu_torch.algos.a2c.a2c import a2c_lr
 from baselines_tpu_torch.algos.acktr.kfac import (KFACState, init_kfac, precondition_layer,
                                                   update_eigs, update_stats)
-from baselines_tpu_torch.algos.common import (Model, build_env, learner_device, not_ported,
-                                              run_rollout)
+from baselines_tpu_torch.algos.common import (Model, build_env, learner_device, mesh_metrics,
+                                              run_rollout, update_metrics)
 from baselines_tpu_torch.core import logger
-from baselines_tpu_torch.core.math import explained_variance, global_norm
-from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.core.math import global_norm
+from baselines_tpu_torch.core.rng import Draws, ShardedDraws
 from baselines_tpu_torch.data.gae import nstep_returns
+from baselines_tpu_torch.distributed.collectives import pmean
+from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.envs.spaces import Box
 from baselines_tpu_torch.envs.vec import VecMonitor
 from baselines_tpu_torch.nn.distributions import make_pdtype
@@ -192,12 +204,14 @@ class KfacPolicyNet(nn.Module):
             out.append(torch.zeros(shape, device=device, requires_grad=True))
         return out
 
-    def layer_stats(self, acts, ds) -> list:
+    def layer_stats(self, acts, ds, batch: int | None = None) -> list:
         """(a rows, g rows) of each layer for ``update_stats``: a dense layer's rows are
         samples with the gradients of the mean loss times the batch; a conv layer's are
         (sample, location) pairs, im2col patches and per-location gradients times
-        batch * sqrt(T) (T locations), which folds KFC's T into S."""
-        batch = ds[-1].shape[0]
+        batch * sqrt(T) (T locations), which folds KFC's T into S. ``batch`` is the size
+        of the batch whose mean the loss is (the rows' count by default; under a mesh
+        the whole mesh's)."""
+        batch = ds[-1].shape[0] if batch is None else batch
         rows = []
         for spec, a, g in zip(self.specs, acts, ds):
             if spec.kind == "conv":
@@ -257,6 +271,11 @@ class KfacPolicy:
 
 @dataclass
 class ACKTRTrainState:
+    """What an update carries to the next; the params live in the policy's module. Under
+    a mesh ``env_state``, ``obs`` and ``last_done`` are the rank's envs'."""
+
+    replicated_fields: ClassVar = ("kfac",)
+
     env_state: Any
     obs: torch.Tensor
     last_done: torch.Tensor
@@ -271,20 +290,27 @@ def _flat01(x: torch.Tensor) -> torch.Tensor:
 def make_update_fn(policy: KfacPolicy, venv, *, nsteps: int, gamma: float, ent_coef: float,
                    vf_coef: float, vf_fisher_coef: float, lr: float, max_grad_norm: float,
                    kfac_clip: float, lrschedule: str, epsilon: float, stats_decay: float,
-                   momentum: float, cold_iter: int, kfac_update: int, nupdates: int):
+                   momentum: float, cold_iter: int, kfac_update: int, nupdates: int,
+                   mesh=None):
     """One ACKTR update (acktr.py:429-509): ``update_fn(state, draws) -> (state,
-    metrics)``."""
+    metrics)``. Under a ``mesh`` the rollout is the rank's envs (``draws`` a
+    ``ShardedDraws``, whose ``replicated`` draws take the Fisher noise), the gradients
+    and the factor moments are the whole batch's, and the metrics are the rank's
+    shares, which ``algos.common.mesh_metrics`` reduces."""
     net = policy.module
     pdtype = policy.pdtype
     params = list(net.parameters())
     index = {id(p): i for i, p in enumerate(params)}
     kfac_idx = [(index[id(m.weight)], index[id(m.bias)]) for m in net.kfac_modules]
-    nbatch = venv.num_envs * nsteps
+    nl = venv.num_envs
+    nbatch = nl * nsteps  # the rank's
+    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
 
     def update_fn(state: ACKTRTrainState, draws):
         lr_now = a2c_lr(lr, lrschedule, state.update_idx, nupdates)
         env_state, obs, last_done, traj, last_value, _ = run_rollout(
             policy, venv, draws, state.env_state, state.obs, state.last_done, nsteps)
+        env_state = VecMonitor.sync_stats(env_state, mesh)
         ret = _flat01(nstep_returns(traj.rewards, traj.dones, last_value, gamma))
         ob, ac, val = _flat01(traj.obs), _flat01(traj.actions), _flat01(traj.values)
         adv = ret - val
@@ -299,14 +325,20 @@ def make_update_fn(policy: KfacPolicy, venv, *, nsteps: int, gamma: float, ent_c
         vf_loss = torch.mean(torch.square(vf - ret))
         loss = pg_loss - ent_coef * entropy + vf_coef * vf_loss
         grads = torch.autograd.grad(loss, params, retain_graph=True)
-        vf_noise = draws.normal((nbatch,))
-        fisher = -torch.mean(neglogpac) - vf_fisher_coef * torch.mean(
-            torch.square(vf - (vf + vf_noise).detach()))
+        if mesh is not None:  # the whole batch's gradient
+            grads = pmean(grads, mesh)
+        # the whole batch's (T * N) noise, the rank's env columns
+        replicated = draws if mesh is None else draws.replicated
+        vf_noise = replicated.normal((nbatch * size,)).reshape(nsteps, size, nl)[
+            :, rank].reshape(-1)
+        # the rank's share of the whole batch's mean
+        fisher = (-torch.mean(neglogpac) - vf_fisher_coef * torch.mean(
+            torch.square(vf - (vf + vf_noise).detach()))) / size
         ds = torch.autograd.grad(fisher, taps)
 
         with torch.no_grad():
-            kfac = update_stats(state.kfac, net.layer_stats([a.detach() for a in acts], ds),
-                                stats_decay)
+            rows = net.layer_stats([a.detach() for a in acts], ds, nbatch * size)
+            kfac = update_stats(state.kfac, rows, stats_decay, mesh)
             if kfac.step % kfac_update == 0:
                 kfac = update_eigs(kfac)
             if kfac.step < cold_iter:  # the cold start: the plain gradient
@@ -330,9 +362,9 @@ def make_update_fn(policy: KfacPolicy, venv, *, nsteps: int, gamma: float, ent_c
                 p.sub_(lr_now * m)
         kfac = KFACState(layers=kfac.layers, momentum=new_momentum, step=kfac.step + 1)
 
-        metrics = {"policy_loss": pg_loss.detach(), "value_loss": vf_loss.detach(),
-                   "policy_entropy": entropy.detach(),
-                   "explained_variance": explained_variance(val, ret)}
+        metrics = update_metrics({"policy_loss": pg_loss.detach(),
+                                  "value_loss": vf_loss.detach(),
+                                  "policy_entropy": entropy.detach()}, val, ret, mesh)
         new_state = ACKTRTrainState(env_state=env_state, obs=obs, last_done=last_done,
                                     kfac=kfac, update_idx=state.update_idx + 1)
         return new_state, metrics
@@ -372,24 +404,27 @@ def learn(
     **network_kwargs,
 ) -> Model:
     """acktr.learn (acktr.py:351-380 signature and defaults), logging the keys of
-    acktr.py:544-549. ``device`` is the card unless the caller passes ``"cpu"``; other
-    keywords are taken and unused, as in the JAX package."""
-    if mesh is not None:
-        not_ported("acktr", "mesh", "item 7 (acktr under a mesh)")
+    acktr.py:544-549. ``mesh``, a ``Mesh`` from ``distributed.make_mesh``, trains data
+    parallel: every rank calls ``learn`` with the same arguments and steps ``num_envs /
+    size`` of the envs on the mesh's device (an ``env`` given is the rank's). ``device``
+    is the card unless the caller passes ``"cpu"``; other keywords are taken and unused,
+    as in the JAX package."""
+    check_mesh(mesh, "acktr's mesh")
     if lrschedule not in ("linear", "constant"):
         raise ValueError(f"lrschedule must be 'linear' or 'constant', got {lrschedule!r}")
-    device = learner_device(None, device)
+    device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
-    venv = env if env is not None else build_env(env_id, num_envs, device=device,
-                                                 **(env_kwargs or {}))
-    nbatch = venv.num_envs * nsteps
+    venv = env if env is not None else build_env(
+        env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh,
+        **(env_kwargs or {}))
+    nbatch = venv.num_envs * nsteps * (1 if mesh is None else mesh.size)
     nupdates = max(total_timesteps // nbatch, 1) if total_timesteps > 0 else 0
 
     net = KfacPolicyNet(venv.observation_space, venv.action_space, network, num_hidden,
                         num_layers, generator=torch.Generator().manual_seed(seed)).to(device)
     policy = KfacPolicy(net, venv.observation_space, venv.action_space)
-    draws = Draws(seed, device)
+    draws = Draws(seed, device) if mesh is None else ShardedDraws(Draws(seed, device), mesh)
     obs, env_state = venv.reset(draws)
     state = ACKTRTrainState(
         env_state=env_state, obs=obs,
@@ -399,8 +434,9 @@ def learn(
         policy, venv, nsteps=nsteps, gamma=gamma, ent_coef=ent_coef, vf_coef=vf_coef,
         vf_fisher_coef=vf_fisher_coef, lr=lr, max_grad_norm=max_grad_norm,
         kfac_clip=kfac_clip, lrschedule=lrschedule, epsilon=epsilon, stats_decay=stats_decay,
-        momentum=momentum, cold_iter=cold_iter, kfac_update=kfac_update, nupdates=nupdates)
-    model = Model(policy, state, None, draws)
+        momentum=momentum, cold_iter=cold_iter, kfac_update=kfac_update, nupdates=nupdates,
+        mesh=mesh)
+    model = Model(policy, state, None, draws, mesh)
     if load_path is not None:
         model.load(load_path)
 
@@ -409,6 +445,7 @@ def learn(
         state, metrics = update_fn(state, draws)
         model.state = state
         if log_interval and (upd % log_interval == 0 or upd == 1):
+            metrics = mesh_metrics(metrics, mesh)
             stats = VecMonitor.get_stats(state.env_state)
             logger.logkv("nupdates", upd)
             logger.logkv("total_timesteps", upd * nbatch)

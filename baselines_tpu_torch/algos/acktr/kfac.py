@@ -11,7 +11,10 @@ or per-location scaling folded in by the caller:
 for the (din + 1, dout) gradient G = [gW; gb]. ``update_stats`` keeps exponential
 moving averages of A and S; ``update_eigs`` refreshes their eigendecompositions
 (``torch.linalg.eigh``, eigenvalues clamped at 0); ``precondition_layer`` applies F^-1.
-A layer's factors start as identities (kfac.py:64-72).
+A layer's factors start as identities (kfac.py:64-72). Under a data-parallel mesh each
+rank holds an equal share of the batch's rows, so ``update_stats`` averages the shares'
+moments over the ranks (one all-reduce) before the moving averages: every rank holds the
+whole batch's factors, and ``update_eigs`` decomposes the same factors on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from baselines_tpu_torch.distributed.collectives import pmean
 
 
 @dataclass
@@ -57,15 +62,22 @@ def init_kfac(layer_dims, params, device) -> KFACState:
                      momentum=[torch.zeros_like(p) for p in params])
 
 
-def update_stats(state: KFACState, layer_rows, stats_decay: float = 0.99) -> KFACState:
+def update_stats(state: KFACState, layer_rows, stats_decay: float = 0.99,
+                 mesh=None) -> KFACState:
     """Fold one Fisher backward's rows into the moving averages: ``layer_rows[i]`` is
-    layer i's (a (n, din), g (n, dout))."""
-    layers = []
-    for layer, (a, g) in zip(state.layers, layer_rows):
+    layer i's (a (n, din), g (n, dout)), under a ``mesh`` the rank's equal share of the
+    batch's rows."""
+    moments = []
+    for a, g in layer_rows:
         n = a.shape[0]
         a_h = torch.cat([a, torch.ones((n, 1), dtype=a.dtype, device=a.device)], dim=1)
-        A = stats_decay * layer.A + (1 - stats_decay) * ((a_h.T @ a_h) / n)
-        S = stats_decay * layer.S + (1 - stats_decay) * ((g.T @ g) / n)
+        moments += [(a_h.T @ a_h) / n, (g.T @ g) / n]
+    if mesh is not None:  # the whole batch's moments
+        moments = pmean(moments, mesh)
+    layers = []
+    for layer, mA, mS in zip(state.layers, moments[0::2], moments[1::2]):
+        A = stats_decay * layer.A + (1 - stats_decay) * mA
+        S = stats_decay * layer.S + (1 - stats_decay) * mS
         layers.append(LayerKFACState(A=A, S=S, QA=layer.QA, lamA=layer.lamA, QS=layer.QS,
                                      lamS=layer.lamS))
     return KFACState(layers=layers, momentum=state.momentum, step=state.step)

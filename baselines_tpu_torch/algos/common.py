@@ -17,7 +17,8 @@
   gradients are first averaged over the ranks, so the norm is the global gradient's.
 - ``learner_device``, ``update_metrics`` and ``mesh_metrics``: a learner's device, and
   an update's metrics, under a mesh the rank's shares, reduced over the ranks only on
-  the updates that log.
+  the updates that log; ``gather_env_columns``: a rank's time-major rollout fields
+  gathered into the whole mesh's, in one call.
 - ``Model``: what ``learn`` returns, with ``save``/``load`` of the params and the
   VecNormalize statistics (the ``--save_path`` payload) and ``save_full``/``load_full``
   of the whole train state, in a one-process layout also under a mesh.
@@ -38,7 +39,8 @@ from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.math import explained_variance, global_norm
 from baselines_tpu_torch.core.running_stats import RunningMeanStd, merge_branched
-from baselines_tpu_torch.distributed.collectives import all_gather_rows, merged_moments, pmean
+from baselines_tpu_torch.distributed.collectives import (all_gather_fields, all_gather_rows,
+                                                         merged_moments, pmean)
 from baselines_tpu_torch.distributed.mesh import barrier, gather_state, shard_state
 from baselines_tpu_torch.envs.base import ClipActions
 from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
@@ -196,13 +198,14 @@ def learner_device(mesh, device) -> torch.device:
     return mesh.device
 
 
-def update_metrics(metrics: dict, ypred: torch.Tensor, y: torch.Tensor, mesh) -> dict:
+def update_metrics(metrics: dict, ypred: torch.Tensor, y: torch.Tensor, mesh,
+                   ev_name: str = "explained_variance") -> dict:
     """An update's ``metrics`` (the means of its loss terms) with the explained variance
-    of ``ypred`` for ``y``. Under a mesh both are the rank's shares: ``explained_variance``
-    is left as the moments of the rank's shard under ``"ev_moments"``, for
-    ``mesh_metrics`` to merge on the updates that log."""
+    of ``ypred`` for ``y`` under ``ev_name``. Under a mesh both are the rank's shares: the
+    explained variance is left as the moments of the rank's shard under
+    ``"ev_moments"``, for ``mesh_metrics`` to merge on the updates that log."""
     if mesh is None:
-        return dict(metrics, explained_variance=explained_variance(ypred, y))
+        return dict(metrics, **{ev_name: explained_variance(ypred, y)})
     y = y.reshape(-1).to(torch.float32)
     d = y - ypred.reshape(-1).to(torch.float32)
     moments = torch.stack([y.mean(), d.mean(), torch.var(y, correction=0),
@@ -210,11 +213,12 @@ def update_metrics(metrics: dict, ypred: torch.Tensor, y: torch.Tensor, mesh) ->
     return dict(metrics, ev_moments=moments)
 
 
-def mesh_metrics(metrics: dict, mesh) -> dict:
+def mesh_metrics(metrics: dict, mesh, ev_name: str = "explained_variance") -> dict:
     """The whole mesh's metrics from a rank's ``update_metrics``, in one gather: each
-    tensor metric's mean over the ranks' equal-size shares, and ``explained_variance``
-    over the global batch from the ranks' merged moments (math_util.py:29-47: nan where
-    Var[y] is 0). Collective; without a mesh the metrics come back as they are."""
+    tensor metric's mean over the ranks' equal-size shares, and the explained variance
+    (``ev_name``) over the global batch from the ranks' merged moments
+    (math_util.py:29-47: nan where Var[y] is 0). Collective; without a mesh the metrics
+    come back as they are."""
     if mesh is None:
         return metrics
     names = [k for k, v in metrics.items() if isinstance(v, torch.Tensor) and k != "ev_moments"]
@@ -228,10 +232,20 @@ def mesh_metrics(metrics: dict, mesh) -> dict:
     out = {}
     for k, v in metrics.items():
         if k == "ev_moments":
-            out["explained_variance"] = ev
+            out[ev_name] = ev
         else:
             out[k] = means.get(k, v)
     return out
+
+
+def gather_env_columns(fields: dict, mesh) -> dict:
+    """A rank's time-major (T, n, ...) tensors as the whole mesh's (T, N, ...), every
+    rank's env columns in env order, in one call (``all_gather_fields`` of their
+    env-major transposes); ``fields`` as they are without a mesh. Collective."""
+    if mesh is None:
+        return fields
+    gathered = all_gather_fields({k: v.transpose(0, 1) for k, v in fields.items()}, mesh)
+    return {k: v.transpose(0, 1) for k, v in gathered.items()}
 
 
 @dataclass

@@ -20,6 +20,15 @@ the row-gather kernel (``ops/gather.py``).
 Draws are taken in this order: the cycle's perturbation (parameter noise), then at each
 rollout step the action noise and the env step's draws; at each train step the replay
 sample, then the adaptation's test perturbation.
+
+Under a data-parallel mesh (``mesh``) each rank steps ``num_envs / size`` envs with its
+rows of the action noise (the OU state holds the rank's rows) and the learner is
+replicated, as the JAX package's mesh run replicates the replay and the key
+(ddpg.py:385-388): each rollout step's transitions are gathered from every rank in env
+order, in one call, so every rank's ring and observation statistics are the one-process
+ones; the replay samples and the parameter perturbations draw from the replicated
+generator; the gradients are averaged all the same. The monitor's episodes are gathered
+once a cycle.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import copy
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
@@ -36,14 +45,16 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
-                                              not_ported, polyak_update)
+                                              polyak_update)
 from baselines_tpu_torch.algos.ddpg.noise import (adapt_param_noise_stddev, parse_noise_type,
                                                   perturb_params)
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
-from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.core.rng import Draws, ShardedDraws
 from baselines_tpu_torch.core.running_stats import RunningMeanStd
 from baselines_tpu_torch.data.replay import ReplayBuffer
+from baselines_tpu_torch.distributed.collectives import all_gather_fields
+from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.envs.spaces import Box
 from baselines_tpu_torch.envs.vec import VecMonitor
 from baselines_tpu_torch.nn.networks import get_network
@@ -87,7 +98,11 @@ class Critic(nn.Module):
 class DDPGTrainState:
     """What a cycle carries to the next. The modules hold the params; the optimizers
     hold the Adam moments; ``perturbed_actor_params`` is the perturbed actor's params by
-    name (the actor's own when there is no parameter noise)."""
+    name (the actor's own when there is no parameter noise). Under a mesh ``env_state``,
+    ``obs`` and ``action_noise_state`` are the rank's envs'; the rest is replicated."""
+
+    replicated_fields: ClassVar = ("replay", "obs_rms", "ret_rms", "param_noise_stddev",
+                                   "perturbed_actor_params")
 
     target_actor: Actor
     target_critic: Critic
@@ -186,18 +201,21 @@ def learn(
     **network_kwargs,
 ) -> Model:
     """ddpg.learn (ddpg/ddpg.py:21-66 signature and defaults), logging the keys of
-    ddpg.py:458-468 and the last train step's losses of each logged epoch. ``device`` is
-    the card unless the caller passes ``"cpu"``; the remaining keywords go to the
-    networks (``layer_norm=True`` for the mujoco defaults)."""
-    if mesh is not None:
-        not_ported("ddpg", "mesh", "item 7 (ddpg under a mesh)")
-    device = learner_device(None, device)
+    ddpg.py:458-468 and the last train step's losses of each logged epoch. ``mesh``, a
+    ``Mesh`` from ``distributed.make_mesh``, trains data parallel: every rank calls
+    ``learn`` with the same arguments and steps ``num_envs / size`` of the envs on the
+    mesh's device (an ``env`` given is the rank's). ``device`` is the card unless the
+    caller passes ``"cpu"``; the remaining keywords go to the networks
+    (``layer_norm=True`` for the mujoco defaults)."""
+    check_mesh(mesh, "ddpg's mesh")
+    device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
     env_kwargs = dict(env_kwargs or {})
     env_kwargs.setdefault("normalize", False)
-    venv = env if env is not None else build_env(env_id, num_envs, device=device, **env_kwargs)
-    nenvs = venv.num_envs
+    venv = env if env is not None else build_env(
+        env_id, local_num_envs(mesh, num_envs), device=device, axis_name=mesh, **env_kwargs)
+    nenvs = venv.num_envs * (1 if mesh is None else mesh.size)
     if not isinstance(venv.action_space, Box):
         raise ValueError(f"DDPG requires a Box action space, got {venv.action_space!r}")
     nb_actions = venv.action_space.shape[-1]
@@ -217,8 +235,8 @@ def learn(
                                 **network_kwargs), init_gen).to(device)
     action_noise, param_noise_std0 = parse_noise_type(noise_type, nb_actions)
     use_param_noise = param_noise_std0 is not None
-    actor_opt = ClipAdam(actor.parameters(), clip_norm, eps=1e-8)
-    critic_opt = ClipAdam(critic.parameters(), clip_norm, eps=1e-8)
+    actor_opt = ClipAdam(actor.parameters(), clip_norm, eps=1e-8, mesh=mesh)
+    critic_opt = ClipAdam(critic.parameters(), clip_norm, eps=1e-8, mesh=mesh)
     actor_params, critic_params = list(actor.parameters()), list(critic.parameters())
     # the critic's L2 term: every kernel outside the output layer (ddpg_learner.py:187-196)
     l2_params = [p for name, p in critic.named_parameters()
@@ -254,8 +272,11 @@ def learn(
             rew = rew * reward_scale
             transition = {"obs": state.obs, "action": a, "reward": rew,
                           "next_obs": info["terminal_obs"], "done": done.to(torch.float32)}
+            if mesh is not None:  # every rank's, in env order
+                transition = all_gather_fields(transition, mesh)
             replay = rb.add_batch(state.replay, transition)
-            obs_rms = state.obs_rms.update(state.obs) if normalize_observations else state.obs_rms
+            obs_rms = (state.obs_rms.update(transition["obs"]) if normalize_observations
+                       else state.obs_rms)
             noise_state = torch.where(done[:, None], torch.zeros_like(noise_state), noise_state)
         return dataclasses.replace(state, env_state=env_state, obs=nobs, replay=replay,
                                    obs_rms=obs_rms, action_noise_state=noise_state,
@@ -304,22 +325,26 @@ def learn(
 
     def cycle(state: DDPGTrainState, draws):
         """One cycle (ddpg.py:322-359); returns the state and the last train step's
-        (actor loss, critic loss), None when it did not train."""
+        (actor loss, critic loss), None when it did not train. Under a mesh the
+        perturbations and the samples take ``draws.replicated``."""
+        replicated = draws if mesh is None else draws.replicated
         if use_param_noise:  # agent.reset() at the cycle's start (ddpg.py:150-156)
             with torch.no_grad():
                 # a snapshot: the layer norms' params are taken as they are now
                 state = dataclasses.replace(state, perturbed_actor_params=perturb_params(
-                    draws, {k: p.detach().clone() for k, p in actor.named_parameters()},
+                    replicated, {k: p.detach().clone() for k, p in actor.named_parameters()},
                     state.param_noise_stddev))
         for _ in range(nb_rollout_steps):
             state = rollout_step(state, draws)
+        state = dataclasses.replace(state, env_state=VecMonitor.sync_stats(state.env_state,
+                                                                           mesh))
         losses = None
         if state.replay.size >= batch_size:
             for i in range(nb_train_steps):
-                state, losses = train_step(state, draws, i)
+                state, losses = train_step(state, replicated, i)
         return state, losses
 
-    draws = Draws(seed, device)
+    draws = Draws(seed, device) if mesh is None else ShardedDraws(Draws(seed, device), mesh)
     obs, env_state = venv.reset(draws)
     sample_item = {
         "obs": obs[0],
@@ -333,15 +358,16 @@ def learn(
         env_state=env_state, obs=obs, replay=rb.init(sample_item),
         obs_rms=RunningMeanStd.create(ob_shape, device=device),
         ret_rms=RunningMeanStd.create((), device=device),
-        action_noise_state=(action_noise.init_state(nenvs, device) if action_noise is not None
-                            else torch.zeros((nenvs, nb_actions), dtype=torch.float32,
+        action_noise_state=(action_noise.init_state(venv.num_envs, device)
+                            if action_noise is not None
+                            else torch.zeros((venv.num_envs, nb_actions), dtype=torch.float32,
                                              device=device)),
         param_noise_stddev=torch.tensor(param_noise_std0 or 0.0, dtype=torch.float32,
                                         device=device),
         perturbed_actor_params={k: p.detach().clone() for k, p in actor.named_parameters()},
     )
 
-    model = DDPGModel(None, state, None, draws)
+    model = DDPGModel(None, state, None, draws, mesh)
     model.policy = DDPGPolicy(actor, critic, lambda o: norm_obs(model.state.obs_rms, o),
                               max_action)
     model.cycle = cycle  # one cycle, for tests

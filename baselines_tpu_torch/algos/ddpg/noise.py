@@ -12,7 +12,9 @@ Every draw comes from the run's ``Draws``: one ``normal`` of the noise state's s
 action noise sample, one ``normal`` of each perturbable parameter's shape a
 perturbation, in the order of the parameters' sorted dotted names, which is the order in
 which the JAX package flattens the flax tree (its keys sorted at every level; ``bias``
-before ``kernel`` or ``scale`` as before ``weight``).
+before ``kernel`` or ``scale`` as before ``weight``). Under a data-parallel mesh the
+action noise takes a ``ShardedDraws`` (its state holds the rank's env rows, its normals
+the rank's rows of the global draw) and the perturbations the replicated draws.
 """
 
 from __future__ import annotations

@@ -32,6 +32,13 @@ env was normalized, its VecNormalize statistics. The reference's save keeps neit
 the last two; the port keeps both, a deliberate difference. ``load`` parses the file
 once, and reads a payload of params alone too: a policy without observation statistics
 loads into the unfiltered policy, for evaluation.
+
+Under a data-parallel mesh (``mesh``) gail is not sharded: the JAX package's gail takes
+``mesh`` and never uses it (gail.py:227), so every rank runs the whole one-process
+learner on the mesh's device, all ``num_envs`` envs and the same draws, and computes the
+one-process numbers bit for bit. The logger's rows come from rank 0 alone
+(``logger.configure_for_process``; its collective ``dumpkvs`` averages equal values),
+and ``run.main`` saves from rank 0 alone.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 import torch.nn as nn
 
 from baselines_tpu_torch.algos.common import (ClipAdam, Model, build_env, learner_device,
-                                              not_ported, run_rollout)
+                                              run_rollout)
 from baselines_tpu_torch.algos.gail.adversary import (Discriminator, adversary_loss,
                                                       adversary_reward)
 from baselines_tpu_torch.algos.gail.behavior_clone import pretrain_bc
@@ -57,6 +64,7 @@ from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.rng import Draws
 from baselines_tpu_torch.core.running_stats import RunningMeanStd
 from baselines_tpu_torch.data.gae import gae
+from baselines_tpu_torch.distributed.mesh import check_mesh
 from baselines_tpu_torch.envs.spaces import Box
 from baselines_tpu_torch.envs.vec import (VecMonitor, VecNormalize, find_normalize_state,
                                           replace_normalize_stats)
@@ -232,7 +240,8 @@ def make_update_fn(policy, venv, disc: Discriminator, vf_opt: ClipAdam, d_opt: C
             ob = policy.module.normalize(ob)
         step, losses = natural_step(inner, ob, ac, atarg, _flat01(traj.neglogps),
                                     max_kl=max_kl, cg_iters=cg_iters, ent_coef=ent_coef,
-                                    cg_damping=cg_damping, fvp_subsample=fvp_subsample)
+                                    cg_damping=cg_damping, fvp_subsample=fvp_subsample,
+                                    nsteps=nsteps)
         with torch.no_grad():  # the diagnostics after the step (trpo_mpi.py:281-284)
             pol = {k: p.detach() for k, p in split_params(inner.module)[0].items()}
             gain_after, _, kl_after, _ = losses(pol)
@@ -308,12 +317,13 @@ def learn(
     """gail/trpo_mpi.learn (gail.py:195-235 signature and defaults). ``expert_path`` is
     an ``.npz`` in the reference schema (``--expert_path`` on the command line);
     ``expert_dataset`` wins where both are given. The env gives raw observations unless
-    ``env_kwargs`` asks for normalization. ``device`` is the card unless the caller
-    passes ``"cpu"``; the remaining keywords go to the network (``mlp`` defaults to 100
-    hidden units, gail/run_mujoco.py:78)."""
-    if mesh is not None:
-        not_ported("gail", "mesh", "item 7 (gail under a mesh)")
-    device = learner_device(None, device)
+    ``env_kwargs`` asks for normalization. Under a ``mesh`` (a ``Mesh`` from
+    ``distributed.make_mesh``) every rank runs this whole learner on the mesh's device,
+    unsharded (the module's docstring). ``device`` is the card unless the caller passes
+    ``"cpu"``; the remaining keywords go to the network (``mlp`` defaults to 100 hidden
+    units, gail/run_mujoco.py:78)."""
+    check_mesh(mesh, "gail's mesh")
+    device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
     if expert_dataset is None and expert_path is not None:

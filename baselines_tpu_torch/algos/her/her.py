@@ -33,6 +33,16 @@ epsilon uniforms; a cycle takes the device env's reset draws, the steps', the st
 then each train step's sample (and its demonstration sample). The host pools draw
 their reset seeds when ``learn`` starts, the train pool's from the run's draws. The
 evaluator draws from its own generator, seeded with ``seed + 999``.
+
+Under a data-parallel mesh (``mesh``) each rank rolls ``num_envs / size`` of a cycle's
+episodes with its rows of every env-axis draw, and the learner is replicated, as the JAX
+package's mesh run replicates the episode buffer and the key (her.py:440-443): the
+cycle's episodes (and their last-step successes) are gathered from every rank in env
+order in one call, so every rank stores the one-process episodes and folds them into
+``o_rms`` and ``g_rms``; the store and the train steps draw from the replicated
+generator; the gradients are averaged all the same. The evaluator's success rate takes
+every rank's episodes. Host goal envs take no mesh: a pool's reset seed is one draw,
+which has no env axis to shard (``CallbackVecEnv.reset``).
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ import json
 import os.path as osp
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, ClassVar
 
 import numpy as np
 import torch
@@ -53,9 +63,11 @@ from baselines_tpu_torch.algos.common import (ClipAdam, Model, gym_thunk, host_p
                                               learner_device, not_ported, polyak_update)
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
-from baselines_tpu_torch.core.rng import Draws
+from baselines_tpu_torch.core.rng import Draws, ShardedDraws
 from baselines_tpu_torch.core.running_stats import RunningMeanStd
 from baselines_tpu_torch.data.her_buffer import HerBufferState, HerReplayBuffer
+from baselines_tpu_torch.distributed.collectives import all_gather_fields, all_gather_rows
+from baselines_tpu_torch.distributed.mesh import check_mesh, local_num_envs
 from baselines_tpu_torch.envs.base import TimeLimit
 from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
 from baselines_tpu_torch.envs.registry import get_env_type, is_torch_env, make_env
@@ -94,7 +106,9 @@ class GoalCritic(nn.Module):
 @dataclass
 class HERTrainState:
     """What a cycle carries to the next; the actor and critic live in the policy, their
-    Adam moments in the optimizers."""
+    Adam moments in the optimizers. Under a mesh every field is replicated."""
+
+    replicated_fields: ClassVar = ("buffer", "o_rms", "g_rms", "success_rate")
 
     target_actor: GoalActor
     target_critic: GoalCritic
@@ -202,17 +216,23 @@ def learn(
     FetchReach), n_batches 40, gamma 1 - 1 / T). ``demo_episodes`` is (o (E, T + 1, do),
     ag (E, T + 1, dg), g (E, T, dg), u (E, T, du)), arrays or tensors. ``env_kwargs`` is
     taken for the CLI's sake and unused: goal envs take no env flags, as in the JAX
-    package. ``device`` is the card unless the caller passes ``"cpu"``."""
+    package. ``mesh``, a ``Mesh`` from ``distributed.make_mesh``, trains data parallel:
+    every rank calls ``learn`` with the same arguments and rolls ``num_envs / size`` of
+    the episodes on the mesh's device. ``device`` is the card unless the caller passes
+    ``"cpu"``."""
     del env_kwargs
-    if mesh is not None:
-        not_ported("her", "mesh", "item 7 (her under a mesh)")
-    device = learner_device(None, device)
+    check_mesh(mesh, "her's mesh")
+    device = learner_device(mesh, device)
     if seed is None:
         seed = int(np.random.SeedSequence().generate_state(1)[0] >> 1)
     if n_cycles is None:
         n_cycles = DEFAULT_ENV_PARAMS.get((env_id or "").split("-v")[0], {}).get("n_cycles", 50)
 
     host_mode = env is None and env_id is not None and not is_torch_env(env_id)
+    if host_mode and mesh is not None:
+        not_ported("her", f"mesh with the host goal env {env_id!r}",
+                   "item 8 (host envs under a mesh)")
+    nl = local_num_envs(mesh, num_envs)  # the episodes a rank rolls
     if host_mode:
         thunk = gym_thunk(env_id, get_env_type(env_id))
         train_venv = CallbackVecEnv(host_pool(thunk, num_envs), info_keys=("is_success",),
@@ -252,8 +272,8 @@ def learn(
                                   **net_kwargs), du, init_gen).to(device)
     critic = GoalCritic(get_network(network, ob_shape=(do + dg + du,), generator=init_gen,
                                     **net_kwargs), init_gen).to(device)
-    actor_opt = ClipAdam(actor.parameters(), None, eps=1e-8)
-    critic_opt = ClipAdam(critic.parameters(), None, eps=1e-8)
+    actor_opt = ClipAdam(actor.parameters(), None, eps=1e-8, mesh=mesh)
+    critic_opt = ClipAdam(critic.parameters(), None, eps=1e-8, mesh=mesh)
     actor_params, critic_params = list(actor.parameters()), list(critic.parameters())
     buffer = HerReplayBuffer(buffer_size_episodes, T, {"o": do, "g": dg, "u": du})
 
@@ -278,12 +298,13 @@ def learn(
 
     @torch.no_grad()
     def episodes(state: HERTrainState, draws, explore: bool, host=None):
-        """``num_envs`` T-step episodes (her/rollout.py:50-136): o/ag (B, T + 1, .), g/u
-        (B, T, .), the success rate of their last step, and the host stream's (env
-        state, obs) after them. Fresh episodes of the device env; with ``host``, (venv,
-        env state, obs) of a host pool, the episodes that its stream runs next."""
+        """A rank's ``num_envs / size`` T-step episodes (her/rollout.py:50-136): o/ag (B,
+        T + 1, .), g/u (B, T, .), the success (B,) of their last step, and the host
+        stream's (env state, obs) after them. Fresh episodes of the device env; with
+        ``host``, (venv, env state, obs) of a host pool, the episodes that its stream runs
+        next."""
         if host is None:
-            obs, env_state = base.reset(draws, num_envs, device)
+            obs, env_state = base.reset(draws, nl, device)
         else:
             venv, env_state, obs = host
         os_, ags, gs, us = [], [], [], []
@@ -293,7 +314,7 @@ def learn(
             if explore:
                 u = torch.clamp(u + noise_eps * draws.normal(u.shape), -1.0, 1.0)
                 u_rand = draws.uniform(u.shape, -1.0, 1.0)
-                take_rand = draws.uniform((num_envs, 1), 0.0, 1.0) < random_eps
+                take_rand = draws.uniform((nl, 1), 0.0, 1.0) < random_eps
                 u = torch.where(take_rand, u_rand, u)
             step = base.step if host is None else venv.step
             obs, env_state, _, _, info = step(draws, env_state, max_action * u)
@@ -305,9 +326,8 @@ def learn(
         final = obs if host is None else info["terminal_obs"]
         os_.append(final["observation"])
         ags.append(final["achieved_goal"])
-        success = info["is_success"].to(torch.float32).mean()
         return (torch.stack(os_, 1), torch.stack(ags, 1), torch.stack(gs, 1),
-                torch.stack(us, 1), success, (env_state, obs))
+                torch.stack(us, 1), info["is_success"].to(torch.float32), (env_state, obs))
 
     def critic_loss(state: HERTrainState, batch: dict) -> torch.Tensor:
         """The critic's TD loss on a batch, its target clipped to [-1 / (1 - gamma), 0]
@@ -352,12 +372,19 @@ def learn(
 
     def cycle(state: HERTrainState, draws):
         """One cycle (her.py:384-424); returns the state and the last train step's
-        (critic loss, actor loss)."""
+        (critic loss, actor loss). Under a mesh the episodes are gathered from every
+        rank, and the store and the train steps take ``draws.replicated``."""
         host = (train_venv, state.env_state, state.obs) if host_mode else None
         o_seq, ag_seq, g_seq, u_seq, success, (env_state, obs) = episodes(
             state, draws, explore=True, host=host)
         if host_mode:
             state = dataclasses.replace(state, env_state=env_state, obs=obs)
+        if mesh is not None:  # every rank's episodes, in env order
+            draws = draws.replicated
+            o_seq, ag_seq, g_seq, u_seq, success = all_gather_fields(
+                {"o": o_seq, "ag": ag_seq, "g": g_seq, "u": u_seq, "success": success},
+                mesh).values()
+        success = success.mean()
         buf = buffer.store_episodes(state.buffer, draws, o_seq, ag_seq, g_seq, u_seq)
         o_rms = state.o_rms.update(o_seq.reshape(-1, do))
         g_rms = state.g_rms.update(torch.cat([g_seq.reshape(-1, dg), ag_seq.reshape(-1, dg)]))
@@ -384,11 +411,15 @@ def learn(
             *_, success, stream = episodes(state, draws, explore=False, host=host)
             if host_mode:
                 eval_stream = stream
-            total += float(success)
+            if mesh is not None:  # every rank's episodes
+                success = all_gather_rows(success, mesh)
+            total += float(success.mean())
         return total / rounds
 
     draws = Draws(seed, device)
     eval_draws = Draws(seed + 999, device)
+    if mesh is not None:
+        draws, eval_draws = ShardedDraws(draws, mesh), ShardedDraws(eval_draws, mesh)
     init_env_state = init_obs = None
     if host_mode:
         init_obs, init_env_state = train_venv.reset(draws)
@@ -400,7 +431,7 @@ def learn(
         g_rms=RunningMeanStd.create((dg,), device=device),
         success_rate=torch.zeros((), dtype=torch.float32, device=device),
         env_state=init_env_state, obs=init_obs)
-    model = HERModel(None, state, draws=draws)
+    model = HERModel(None, state, draws=draws, mesh=mesh)
     model.policy = HERPolicy(actor, critic,
                              lambda o, g: pi(model.state, o, g),
                              max_action)
@@ -412,7 +443,8 @@ def learn(
 
     steps_per_epoch = n_cycles * num_envs * T
     n_epochs = max(total_timesteps // steps_per_epoch, 1) if total_timesteps > 0 else 0
-    if logger.get_dir():  # the resolved parameters (her/her.py:126, config.py log_params)
+    # the resolved parameters (her/her.py:126, config.py log_params), from rank 0
+    if logger.get_dir() and (mesh is None or mesh.rank == 0):
         params = dict(
             env_id=env_id, network=network, T=T, num_envs=num_envs, replay_k=replay_k,
             n_cycles=n_cycles, n_batches=n_batches, n_test_rollouts=n_test_rollouts,

@@ -31,14 +31,18 @@ import torch.distributed as dist
 
 def psum(tensors, mesh) -> list:
     """The sum over the ranks of each of ``tensors``, which share a dtype, flattened
-    into one all-reduce (a collective costs host time whatever its size)."""
+    into one all-reduce (a collective costs host time whatever its size). Each sum keeps
+    its tensor's memory layout (a conv's gradient may come channels-last), so that the
+    reductions that read it later sum in the same order as without a mesh."""
     tensors = list(tensors)
     if len({t.dtype for t in tensors}) > 1:
         raise ValueError(f"psum takes tensors of one dtype, got {[t.dtype for t in tensors]}")
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=mesh.group)
-    return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]),
-                                                   tensors)]
+    parts = (part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]),
+                                                   tensors))
+    return [part if t.is_contiguous() else torch.empty_like(t).copy_(part)
+            for part, t in zip(parts, tensors)]
 
 
 def pmean(tensors, mesh) -> list:

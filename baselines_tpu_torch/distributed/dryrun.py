@@ -6,10 +6,13 @@
 
 ``dryrun_multichip(world)`` starts ``world`` processes, one for each rank (rank r on
 card r, or all on the CPU), joined through a ``file://`` rendezvous in a temporary
-directory. Each trains ppo2, ppo1, deepq and a2c on CartPole-v1 with an ``mlp`` under
-``mesh=make_mesh()``, one update (or a few deepq training iterations) each, and checks
-that the params are finite and equal on every rank. It returns each rank's report and
-raises when a rank fails or takes longer than ``RANK_TIMEOUT_S``.
+directory. Each trains every learner with an ``mlp`` under ``mesh=make_mesh()``, one
+update (or a few deepq training iterations, one ddpg or her cycle) each: ppo2, ppo1,
+deepq, a2c, trpo, acktr and acer on CartPole-v1, ddpg on Pendulum-v1, her on
+PointReach-v0 and gail on BoxIdentity-v0 from an expert ``.npz`` that the rank writes
+beside the rendezvous; and checks that the params are finite and equal on every rank.
+It returns each rank's report and raises when a rank fails or takes longer than
+``RANK_TIMEOUT_S``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ RANK_TIMEOUT_S = 600  # a rank that takes longer fails the dry run
 
 def _rank_main(rank: int, world: int, rendezvous: str, device: str) -> None:
     """The body of one rank."""
+    import numpy as np
+
     from baselines_tpu_torch.algos import get_learn_function
     from baselines_tpu_torch.core import logger
     from baselines_tpu_torch.distributed import (make_mesh, maybe_initialize_distributed,
@@ -39,6 +44,9 @@ def _rank_main(rank: int, world: int, rendezvous: str, device: str) -> None:
     mesh = make_mesh()
     logger.configure_for_process(rank, format_strs=[])
     num_envs = 2 * world
+    expert = os.path.join(os.path.dirname(rendezvous), f"expert.{rank}.npz")
+    expert_obs = np.random.RandomState(0).uniform(-1, 1, (1, 256, 1)).astype(np.float32)
+    np.savez(expert, obs=expert_obs, acs=expert_obs)
     runs = {
         "ppo2": dict(total_timesteps=num_envs * 8, nsteps=8, nminibatches=2, noptepochs=2),
         "ppo1": dict(total_timesteps=num_envs * 16, timesteps_per_actorbatch=num_envs * 16,
@@ -47,10 +55,23 @@ def _rank_main(rank: int, world: int, rendezvous: str, device: str) -> None:
                       batch_size=2 * world, buffer_size=num_envs * 64, chunk_size=8,
                       prioritized_replay=True, print_freq=0),
         "a2c": dict(total_timesteps=num_envs * 8, nsteps=8),
+        "trpo": dict(total_timesteps=num_envs * 16, timesteps_per_batch=num_envs * 16,
+                     vf_iters=1),
+        "acktr": dict(total_timesteps=num_envs * 8, nsteps=8, cold_iter=0),
+        "acer": dict(total_timesteps=num_envs * 16, nsteps=8, replay_start=num_envs * 8,
+                     buffer_size=num_envs * 64, replay_ratio=1),
+        "ddpg": dict(env_id="Pendulum-v1", nb_epochs=1, nb_epoch_cycles=1,
+                     nb_rollout_steps=16, nb_train_steps=2, batch_size=16, noise_type="ou_0.2"),
+        "her": dict(env_id="PointReach-v0", total_timesteps=1, n_cycles=1, n_batches=2,
+                    batch_size=16, n_test_rollouts=num_envs),
+        "gail": dict(env_id="BoxIdentity-v0", total_timesteps=num_envs * 16,
+                     timesteps_per_batch=num_envs * 16, vf_iters=1, g_step=1,
+                     expert_path=expert),
     }
     for alg, kwargs in runs.items():
-        model = get_learn_function(alg)(env_id="CartPole-v1", network="mlp", seed=0,
-                                        num_envs=num_envs, mesh=mesh, **kwargs)
+        kwargs = {"env_id": "CartPole-v1", **kwargs}
+        model = get_learn_function(alg)(network="mlp", seed=0, num_envs=num_envs, mesh=mesh,
+                                        **kwargs)
         params = list(model.policy.module.parameters())
         if not all(bool(torch.isfinite(p).all()) for p in params):
             raise RuntimeError(f"{alg}: params are not finite on rank {rank}")

@@ -91,11 +91,11 @@ Phases, each printing its seconds:
         steps, 4 iterations: finite metrics with linesearch_success, >= 128 fused CNN and
         24 gather launches (2 fields x 3 value epochs an iteration);
      b. trpo with mlp on CartPole-v1 through run.main at the classic-control defaults,
-        50 iterations of 1024 steps, saved and played: 10 gathers an iteration, a
+        40 iterations of 1024 steps, saved and played: 10 gathers an iteration, a
         deterministic return >= 150 over 600 steps of 8 envs, the --load_path round trip
         bit for bit;
      c. ddpg through run.main on Pendulum-v1 at its classic-control defaults, one epoch of
-        20 cycles x (100 steps, 50 train steps), saved and played: 5 gathers a train
+        10 cycles x (100 steps, 50 train steps), saved and played: 5 gathers a train
         step, finite losses, the --load_path round trip bit for bit (actor, critic,
         targets, obs_rms, ret_rms) with the same play report; ddpg with adaptive-param_0.2
         and layer norms on BoxIdentity-v0 (a finite, adapted param_noise_stddev) and
@@ -116,7 +116,7 @@ Phases, each printing its seconds:
         timed in turns against index_select on rows read cold (20 disjoint sets of 16
         rows in turn) and warm (the same 16);
      b. acer with mlp on CartPole-v1 through run.main (4 envs, --frame_stack=2
-        --dedup_frames=2, replay_start 2000, buffer_size 10000, 80000 steps), saved and
+        --dedup_frames=2, replay_start 2000, buffer_size 10000, 72000 steps), saved and
         played: 6 gathers a replay update, a deterministic return over 100 on 600 steps
         of 4 envs, the --load_path round trip bit for bit with the same play report;
      c. acktr at acktr/defaults.py atari() (the Nature cnn, eigendecompositions every 10
@@ -127,12 +127,38 @@ Phases, each printing its seconds:
         --load_path round trip bit for bit;
      d. gail on BoxIdentity-v0 through run.main with --expert_path (an .npz written to a
         temporary directory: 5000 observations uniform in [-1, 1] from seed 0, acs = obs),
-        8 envs, 512 steps a batch, g_step 1, d_step 3, 100000 steps: 12 gathers an
+        8 envs, 512 steps a batch, g_step 1, d_step 3, 80000 steps: 12 gathers an
         iteration (10 in the value fit, 2 for the expert sample), a deterministic return
         over -10 on 300 steps of 8 envs, the --load_path round trip bit for bit with the
         adversary, its Adam states, the iteration count and the same play report;
      e. the gather at gail's shapes (512 rows of f32 (512, 1) value-fit obs and of the
         (5000, 1) expert table), bit for bit, timed in turns against index_select.
+  14. main path 9, the host env path (``host_env_path``): g++ builds the native engine,
+     held against the device envs on the card; the pipelined pair on a counting fixture;
+     ppo2 with mlp on native:CartPole-v1 fused and pipelined at 8 envs x 64 steps;
+     run.main at 1024 native envs x 128 steps with the --load_path round trip; one
+     pipelined update under profiler.trace; the gather at this path's shapes.
+  15. main path 10, the remaining learners under a one-rank NCCL mesh
+     (``mesh_learners_path``), each run without the mesh and with it from the same seed
+     (cudnn deterministic): the same kernel launches, the params bit for bit (or within
+     the spread of two runs without the mesh), param_consistency_check true, the NCCL
+     calls an iteration, and the steady rate of each printed (the median of the
+     intervals between logged rows of two runs with the mesh and two without, run
+     without, with, with, without):
+     a. trpo at trpo/defaults.py atari() with cnn_s2d in bf16 on AtariSim-v0, 16 envs x
+        32 steps (phase 12a's width), 7 iterations: K1 at every step, 42 gathers;
+     b. ddpg on Pendulum-v1 at its classic-control defaults, 7 cycles of 100 steps and
+        50 train steps: 1750 gathers, 201 NCCL calls a cycle;
+     c. her on PointReach-v0 at phase 12d's width (16 envs, 40 batches of 256), 7 cycles:
+        1680 gathers, 82 NCCL calls a cycle;
+     d. acktr at acktr/defaults.py atari() on AtariSim-v0, 8 envs x 20 steps, 11 updates
+        (two eigendecomposition rounds): 4 NCCL calls an update;
+     e. acer at acer/defaults.py atari() with phase 13a's 2500-chunk flat ring, 10
+        updates and the replay from update 4: 5 gathers a replay update;
+     f. gail on BoxIdentity-v0 from an expert .npz written here, 7 iterations: 12
+        gathers an iteration, no NCCL call (gail is not sharded);
+     g. dryrun_multichip(2) over NCCL where the machine has two cards or more; with one
+        card it says why it did not run.
   Every sub-phase prints its seconds, env-steps/s (set-up included) and peak memory.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
@@ -260,6 +286,47 @@ class Tee:
 
     def text(self) -> str:
         return "".join(self.parts)
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Counts the calls of torch.distributed's collectives inside the block."""
+    names = ("all_reduce", "all_gather", "all_gather_object", "barrier")
+    saved = {name: getattr(torch.distributed, name) for name in names}
+    calls = [0]
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(torch.distributed, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.distributed, name, fn)
+
+
+def join_one_rank_group():
+    """torchrun's variables for rank 0 of 1 on this card, the rendezvous on a free local
+    port; returns the mesh of the NCCL group joined (maybe_initialize_distributed)."""
+    from baselines_tpu_torch.distributed import make_mesh, maybe_initialize_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    require(maybe_initialize_distributed() and maybe_initialize_distributed(),
+            "maybe_initialize_distributed did not join the group")
+    backend = str(torch.distributed.get_backend())
+    mesh = make_mesh()
+    require(backend == "nccl" and mesh.size == 1 and mesh.device == torch.device("cuda", 0),
+            f"the mesh is {mesh} on backend {backend}, expected one NCCL rank on cuda:0")
+    return mesh
 
 
 class Phase:
@@ -697,6 +764,216 @@ def host_env_path(dev, card, kernels, counts, reset_counts, read_counts, run_cli
     kernels["take_rows"]["path9_shapes"] = shapes
 
 
+def mesh_learners_path(dev, card, counts, reset_counts, read_counts, recording_output):
+    """Main path 10, the remaining learners under a one-rank NCCL mesh (phase 15 of the
+    module's docstring): trpo, ddpg, her, acktr, acer and gail at phases 12-13's widths,
+    each run without the mesh and with it from the same seed; then dryrun_multichip(2)
+    where the machine has two cards. Adds the mesh runs' launch counts to ``counts``."""
+    import numpy as np
+
+    from baselines_tpu_torch.algos import get_learn_function
+    from baselines_tpu_torch.algos.acer.defaults import atari as acer_atari
+    from baselines_tpu_torch.algos.acktr.defaults import atari as acktr_atari
+    from baselines_tpu_torch.algos.ddpg.defaults import classic_control as ddpg_classic
+    from baselines_tpu_torch.algos.trpo.defaults import atari as trpo_atari
+    from baselines_tpu_torch.core import logger
+    from baselines_tpu_torch.distributed import param_consistency_check, psum
+    from baselines_tpu_torch.distributed.dryrun import dryrun_multichip
+
+    class TimedOutput(recording_output):
+        """The logged rows and the host clock at each (a row waits for the device)."""
+
+        def __init__(self):
+            super().__init__()
+            self.times = []
+
+        def writekvs(self, kvs):
+            super().writekvs(kvs)
+            self.times.append(time.perf_counter())
+
+    def replays(updates: int, steps_per_update: int, replay_start: int) -> int:
+        rng = np.random.RandomState(0)  # acer's Poisson(4) replay counts
+        return sum(rng.poisson(4) for u in range(1, updates + 1)
+                   if u * steps_per_update >= replay_start)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice10_")
+    expert = np.random.RandomState(0).uniform(-1, 1, size=(1, 5000, 1)).astype(np.float32)
+    expert_path = os.path.join(tmp, "expert.npz")
+    np.savez(expert_path, obs=expert, acs=expert.copy())
+    n_replay = replays(10, 320, 4 * 320)
+    # name -> (alg, learn's keywords, env steps a logged row, the rows, the NCCL calls of
+    # the mesh run or None where the line search sets them, K2 launches); 7 rows or more
+    # each, so that the steady rate is the median of 6 intervals or more
+    runs = {
+        # a. phase 12a: trpo atari() with cnn_s2d bf16, 16 envs x 32 steps, 7 iterations
+        "trpo": ("trpo", dict(dict(trpo_atari(), network="cnn_s2d"), env_id="AtariSim-v0",
+                              dtype=torch.bfloat16, env_kwargs={"s2d": 4}, num_envs=16,
+                              total_timesteps=7 * 512, log_interval=1), 512, 7, None, 7 * 6),
+        # b. ddpg's classic-control defaults on Pendulum-v1 (4 envs, ou_0.2), 7 epochs of
+        # one cycle (100 steps, 50 train steps): a gather a step, a sync a cycle, two
+        # gradient all-reduces a train step
+        "ddpg": ("ddpg", dict(ddpg_classic(), env_id="Pendulum-v1", nb_epochs=7,
+                              nb_epoch_cycles=1), 400, 7, 7 * (100 + 1 + 2 * 50), 7 * 250),
+        # c. phase 12d's width (16 envs, 40 batches of 256, 3 x 256 relu), 7 epochs of
+        # one cycle: a gather of the episodes and two all-reduces a train step, one
+        # gather of the evaluator's successes an epoch
+        "her": ("her", dict(env_id="PointReach-v0", num_envs=16, n_cycles=1, n_batches=40,
+                            batch_size=256, total_timesteps=7 * 16 * 50), 800, 7,
+                7 * (1 + 2 * 40 + 1), 7 * 40 * 6),
+        # d. acktr atari() (the Nature cnn, eigendecompositions every 10 updates) at
+        # phase 13c's 8 envs x 20 steps, 11 updates (two eigendecomposition rounds): the
+        # monitor's gather, the gradients', the factor moments', the logged metrics'
+        "acktr": ("acktr", dict(acktr_atari(), env_id="AtariSim-v0", num_envs=8,
+                                total_timesteps=11 * 160, log_interval=1), 160, 11, 11 * 4, 0),
+        # e. acer atari() with phase 13a's 2500-chunk ring of flat obs rows, 10 updates,
+        # replay from update 4: the monitor's, the chunk's gather and the gradients' an
+        # update, the gradients' a replay update, the logged metrics'
+        "acer": ("acer", dict(acer_atari(), env_id="AtariSim-v0", total_timesteps=10 * 320,
+                              buffer_size=50000, replay_ratio=4, replay_start=4 * 320,
+                              log_interval=1), 320, 10, 10 * 4 + n_replay, 5 * n_replay),
+        # f. gail on BoxIdentity-v0 at phase 13d's configuration from the expert .npz
+        # written here, 7 iterations; unsharded, it makes no collective
+        "gail": ("gail", dict(env_id="BoxIdentity-v0", expert_path=expert_path, num_envs=8,
+                              timesteps_per_batch=512, gamma=0.9, lam=0.97, max_kl=0.01,
+                              g_step=1, d_step=3, total_timesteps=7 * 512), 512, 7, 0, 7 * 12),
+    }
+
+    def trained(model) -> dict:
+        """Every trained tensor: the policy's module, and ddpg's and her's critic, gail's
+        discriminator."""
+        out = dict(model.policy.module.state_dict())
+        for owner, name in ((model.policy, "critic"), (model, "disc")):
+            if getattr(owner, name, None) is not None:
+                out.update({f"{name}.{k}": v for k, v in getattr(owner, name).state_dict().items()})
+        return out
+
+    def run(alg, kwargs, mesh):
+        recorder = TimedOutput()
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the runs before, not this one's
+        reset_counts()
+        start = time.perf_counter()
+        with count_collectives() as calls:
+            model = get_learn_function(alg)(seed=0, mesh=mesh, **kwargs)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        logger.reset()
+        return dict(model=model, rows=recorder.rows, times=recorder.times, counts=read_counts(),
+                    calls=calls[0], seconds=elapsed,
+                    peak=torch.cuda.max_memory_allocated() - held)
+
+    def max_diff(a: dict, b: dict) -> float:
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    # bit for bit needs the same algorithms in both runs
+    saved_cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    mesh = join_one_rank_group()
+    try:
+        for letter, (name, (alg, kwargs, row_steps, nrows, want_calls, want_k2)) in zip(
+                "abcdef", runs.items()):
+            plain = run(alg, kwargs, None)
+            meshed = run(alg, kwargs, mesh)
+            counts[f"mesh_{name}"] = c = meshed["counts"]
+            require(c == plain["counts"], f"{name} under the mesh launched {c}, without it "
+                    f"{plain['counts']}")
+            require(c["take_rows"] == want_k2, f"{name} launched {c}, expected {want_k2} "
+                    "take_rows")
+            if name == "trpo":
+                require(c["fused_cnn"] >= nrows * 32, f"trpo under the mesh launched {c}, "
+                        f"expected >= {nrows * 32} fused_cnn")
+            calls = meshed["calls"]
+            if want_calls is None:  # an iteration: 4, cg_iters + 1, and 1 to 10 probes
+                per_iter = 4 + trpo_atari()["cg_iters"] + 1
+                require(nrows * (per_iter + 1) <= calls <= nrows * (per_iter + 10),
+                        f"trpo under the mesh made {calls} NCCL calls in {nrows} iterations")
+            else:
+                require(calls == want_calls, f"{name} under the mesh made {calls} NCCL "
+                        f"calls, expected {want_calls}")
+            require(len(meshed["rows"]) == len(plain["rows"]) == nrows,
+                    f"{name} logged {len(meshed['rows'])} rows, {len(plain['rows'])} without "
+                    f"the mesh, expected {nrows}")
+            params, want = trained(meshed["model"]), trained(plain["model"])
+            require(all(bool(torch.isfinite(v).all()) for v in params.values()),
+                    f"{name} under the mesh: params not finite")
+            require(param_consistency_check(list(meshed["model"].policy.module.parameters()),
+                                            mesh, atol=0.0),
+                    f"{name}: param_consistency_check failed")
+            # two more runs for the rates, so that the runs go without, with, with, without
+            meshed2 = run(alg, kwargs, mesh)
+            plain2 = run(alg, kwargs, None)
+            diff = max_diff(params, want)
+            if diff == 0.0:
+                verdict = "bit for bit equal to the run without the mesh"
+            else:  # hold the mesh run to the spread of two runs without it
+                noise = max_diff(trained(plain2["model"]), want)
+                require(diff <= noise, f"{name}: the mesh run differs by {diff}, two runs "
+                        f"without the mesh by {noise}")
+                verdict = (f"within {diff:.3g} of the run without the mesh, where two runs "
+                           f"without it differ by {noise:.3g}")
+
+            def steady(*rs):  # env steps a second, the median of the logged rows' intervals
+                return float(np.median(np.concatenate(
+                    [row_steps / np.diff(r["times"]) for r in rs])))
+
+            rate, rate_plain = steady(meshed, meshed2), steady(plain, plain2)
+            alone = steady(meshed) / steady(plain), steady(meshed2) / steady(plain2)
+            print(f"main path 10{letter} [{card}]: {name} under a one-rank NCCL mesh, "
+                  f"launches {c} (the same without the mesh); {calls} NCCL calls in {nrows} "
+                  f"iterations = {calls / nrows:.2f} an iteration; steady rate, the median of "
+                  f"the 2 x {nrows - 1} intervals between logged rows of two runs each (in "
+                  f"the order without, with, with, without), {rate:.0f} env-steps/s under the "
+                  f"mesh, {rate_plain:.0f} without ({rate / rate_plain:.3f}; the first pair "
+                  f"{alone[0]:.3f}, the second {alone[1]:.3f}); "
+                  f"{meshed['seconds']:.2f} s with set-up "
+                  f"({plain['seconds']:.2f} s without); params {verdict}; peak device memory "
+                  f"{meshed['peak'] / 2**30:.2f} GiB ({plain['peak'] / 2**30:.2f} without)",
+                  flush=True)
+            del plain, meshed, plain2, meshed2, params, want
+
+        # does a collective hold the host until the device has run what was queued
+        # before it? 20 f32 matmuls of 4096 x 4096 queued (about 40 ms of device time),
+        # then one call timed on the host clock before the device is synchronized: an
+        # all-reduce of 1024 f32, and a device op of the same size in its place
+        a = torch.randn((4096, 4096), device=dev)
+        x = torch.randn((1024,), device=dev)
+        waits = {}
+        for what, call in (("x * 1.0", lambda: x * 1.0), ("psum", lambda: psum([x], mesh))):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                a @ a
+            queued = time.perf_counter()
+            call()
+            returned = time.perf_counter()
+            torch.cuda.synchronize()
+            waits[what] = ((queued - t0) * 1e3, (returned - queued) * 1e3,
+                           (time.perf_counter() - t0) * 1e3)
+        print(f"main path 10 collectives [{card}]: behind a queue of 20 matmuls "
+              + "; ".join(f"{k}: the queue enqueued in {q:.3f} ms, the call returned after "
+                          f"{c:.3f} ms, all done at {d:.3f} ms" for k, (q, c, d) in waits.items()),
+              flush=True)
+        del a, x
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_cudnn
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # g. two NCCL ranks, one a card, every learner
+    if torch.cuda.device_count() >= 2:
+        start = time.perf_counter()
+        outs = dryrun_multichip(2)
+        print(f"main path 10g [{card}]: dryrun_multichip(2) over NCCL, the ten learners, in "
+              f"{time.perf_counter() - start:.2f} s:\n{''.join(outs)}", flush=True)
+    else:
+        print(f"main path 10g [{card}]: dryrun_multichip(2) did not run: this machine has "
+              f"{torch.cuda.device_count()} card and NCCL puts no two ranks on one GPU; the "
+              "two-rank math is held by the CPU gloo tests", flush=True)
+
+
 def main() -> int:
     with Phase("device"):
         if not torch.cuda.is_available():
@@ -710,8 +987,7 @@ def main() -> int:
         from baselines_tpu_torch.algos.common import build_env, evaluate, run_rollout
         from baselines_tpu_torch.algos.a2c import a2c
         from baselines_tpu_torch.algos.ppo.ppo import learn
-        from baselines_tpu_torch.distributed import (make_mesh, maybe_initialize_distributed,
-                                                     param_consistency_check)
+        from baselines_tpu_torch.distributed import param_consistency_check
         from baselines_tpu_torch.distributed.collectives import all_gather_rows, psum
         from baselines_tpu_torch.distributed.dryrun import dryrun_multichip
         from baselines_tpu_torch.core import logger
@@ -1665,41 +1941,9 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=t["cumsum+searchsorted"])
 
     with Phase("main path 6: data parallelism under a one-rank NCCL mesh"):
-        # torchrun's variables for rank 0 of 1 on this card, the rendezvous on a free
-        # local port; the group is NCCL, and no mesh run below falls back to anything else
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
-                          MASTER_PORT=str(port))
-        require(maybe_initialize_distributed() and maybe_initialize_distributed(),
-                "maybe_initialize_distributed did not join the group")
+        # a one-rank NCCL group on this card; no mesh run below falls back to anything else
+        mesh = join_one_rank_group()
         try:
-            backend = str(torch.distributed.get_backend())
-            mesh = make_mesh()
-            require(backend == "nccl" and mesh.size == 1 and mesh.device == torch.device("cuda", 0),
-                    f"the mesh is {mesh} on backend {backend}, expected one NCCL rank on cuda:0")
-
-            @contextlib.contextmanager
-            def count_collectives():
-                """Counts the calls of torch.distributed's collectives inside the block."""
-                names = ("all_reduce", "all_gather", "all_gather_object", "barrier")
-                saved = {name: getattr(torch.distributed, name) for name in names}
-                calls = [0]
-
-                def counted(fn):
-                    def call(*args, **kwargs):
-                        calls[0] += 1
-                        return fn(*args, **kwargs)
-                    return call
-
-                for name, fn in saved.items():
-                    setattr(torch.distributed, name, counted(fn))
-                try:
-                    yield calls
-                finally:
-                    for name, fn in saved.items():
-                        setattr(torch.distributed, name, fn)
 
             def check_params(module, what):
                 params = list(module.parameters())
@@ -1936,11 +2180,11 @@ def main() -> int:
                   f"{[round(r['meankl'], 6) for r in recorder.rows]}; {peak_gib()}", flush=True)
 
             # b. trpo with mlp on CartPole-v1 through run.main at the classic-control
-            # defaults (tests/test_trpo_learning.py:37-55's run), 50 iterations of its
-            # 1024 steps where the test runs 146, so that the phase keeps to its time:
-            # the return it checks is reached by then; saved, and the file back through
-            # --load_path
-            steps = 50 * 1024
+            # defaults (tests/test_trpo_learning.py:37-55's run), 40 iterations of its
+            # 1024 steps where the test runs 146, so that the script keeps to its time
+            # (50 until phase 15 came): the return it checks is reached by then; saved,
+            # and the file back through --load_path
+            steps = 40 * 1024
             path = os.path.join(tmp, "trpo.pt")
             argv = ["--alg=trpo_mpi", "--env=CartPole-v1", "--seed=0", "--play"]
             start = begin()
@@ -1970,17 +2214,20 @@ def main() -> int:
             del model_b, model_l
 
             # c. ddpg through run.main on Pendulum-v1 at its classic-control defaults (4
-            # envs, ou_0.2, actor_lr 1e-3, batch 64): one epoch of 20 cycles x (100
-            # steps, 50 train steps), saved, played, and the file back through --load_path
+            # envs, ou_0.2, actor_lr 1e-3, batch 64): one epoch of 10 cycles x (100
+            # steps, 50 train steps) where the defaults run 20, so that the script keeps
+            # to its time (20 until phase 15 came); saved, played, and the file back
+            # through --load_path
             path = os.path.join(tmp, "ddpg.pt")
-            argv = ["--alg=ddpg", "--env=Pendulum-v1", "--seed=0", "--play"]
+            argv = ["--alg=ddpg", "--env=Pendulum-v1", "--seed=0", "--nb_epoch_cycles=10",
+                    "--play"]
             start = begin()
-            model_c, out_c = run_cli(argv + ["--num_timesteps=8000", f"--save_path={path}",
+            model_c, out_c = run_cli(argv + ["--num_timesteps=4000", f"--save_path={path}",
                                              f"--log_path={os.path.join(tmp, 'ddpg')}"])
             elapsed = time.perf_counter() - start
             counts["cli_ddpg"] = c = read_counts()
-            require(c["take_rows"] == 5 * 20 * 50, f"ddpg launched {c}, expected 5000 "
-                    "take_rows (5 fields a train step, 1000 train steps)")
+            require(c["take_rows"] == 5 * 10 * 50, f"ddpg launched {c}, expected 2500 "
+                    "take_rows (5 fields a train step, 500 train steps)")
             with open(os.path.join(tmp, "ddpg", "progress.csv"), newline="") as f:
                 rows = list(csv.DictReader(f))
             require(len(rows) == 1 and all(math.isfinite(float(rows[0][k])) for k in (
@@ -1996,9 +2243,9 @@ def main() -> int:
             require(play_report(out_l) == play_report(out_c),
                     f"ddpg: play after load {play_report(out_l)}, after training "
                     f"{play_report(out_c)}")
-            print(f"main path 7c [{card}]: ddpg on Pendulum-v1 through run.main, 8000 env "
-                  f"steps and 1000 train steps, launches {c}; {elapsed:.2f} s with save and "
-                  f"play = {8000 / elapsed:.0f} env-steps/s (set-up included); losses actor "
+            print(f"main path 7c [{card}]: ddpg on Pendulum-v1 through run.main, 4000 env "
+                  f"steps and 500 train steps, launches {c}; {elapsed:.2f} s with save and "
+                  f"play = {4000 / elapsed:.0f} env-steps/s (set-up included); losses actor "
                   f"{float(rows[0]['train/loss_actor']):.4f}, critic "
                   f"{float(rows[0]['train/loss_critic']):.4f}; return history "
                   f"{float(rows[0]['rollout/return_history']):.1f}; the load round trip bit for "
@@ -2217,11 +2464,11 @@ def main() -> int:
 
             # b. acer with mlp on CartPole-v1 through run.main with
             # tests/test_acer_learning.py:108-128's configuration: 4 envs, a 2-frame stack
-            # stored deduplicated, replay_start 2000, buffer_size 10000; 80000 steps where
-            # the test runs 120000, to keep the phase's time (the return it checks is
-            # reached by then)
+            # stored deduplicated, replay_start 2000, buffer_size 10000; 72000 steps where
+            # the test runs 120000, to keep the script's time (80000 until phase 15
+            # came; the return it checks is reached by then)
             path = os.path.join(tmp, "acer.pt")
-            steps = 80000
+            steps = 72000
             argv = ["--alg=acer", "--env=CartPole-v1", "--seed=0", "--num_env=4",
                     "--frame_stack=2", "--dedup_frames=2", "--play"]
             start = begin()
@@ -2323,7 +2570,7 @@ def main() -> int:
             expert_path = os.path.join(tmp, "expert.npz")
             np.savez(expert_path, obs=expert, acs=expert.copy())
             path = os.path.join(tmp, "gail.pt")
-            steps = 100000
+            steps = 80000  # 100000 until phase 15 came, cut to keep the script's time
             argv = ["--alg=gail", "--env=BoxIdentity-v0", "--seed=0", "--num_env=8",
                     "--timesteps_per_batch=512", "--gamma=0.9", "--lam=0.97", "--max_kl=0.01",
                     "--g_step=1", "--d_step=3", f"--expert_path={expert_path}", "--play"]
@@ -2394,6 +2641,9 @@ def main() -> int:
     with Phase("main path 9: the host env path (native engine, pipelined ppo2, profiler)"):
         host_env_path(dev, card, kernels, counts, reset_counts, read_counts, run_cli,
                       play_report, RecordingOutput)
+
+    with Phase("main path 10: the remaining learners under a one-rank NCCL mesh"):
+        mesh_learners_path(dev, card, counts, reset_counts, read_counts, RecordingOutput)
 
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}

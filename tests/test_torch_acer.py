@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_dist_worker import acer_two_updates
 from torch_parity import (ReplayDraws, base_env, init_params, move_params, push_reset,
                           push_rollout_step, rel_err)
 
@@ -26,7 +27,7 @@ from baselines_tpu.data.frame_chunk import decompress_frames as jax_decompress
 from baselines_tpu.nn.policy import build_policy as jax_build_policy
 from baselines_tpu_torch import convert
 from baselines_tpu_torch.algos.acer import acer
-from baselines_tpu_torch.algos.common import ClipRMSProp, build_env
+from baselines_tpu_torch.algos.common import build_env
 from baselines_tpu_torch.core.rng import Draws
 from baselines_tpu_torch.data.frame_chunk import compress_frames, decompress_frames
 from baselines_tpu_torch.envs.testing.identity import BoxIdentityEnv
@@ -107,14 +108,15 @@ CASES = {"trust_region": dict(trust_region=True),
          "no_trust_region_dedup": dict(trust_region=False, frame_stack=2, dedup_frames=2)}
 
 
-@pytest.fixture(scope="module", params=list(CASES))
-def two_chunks(request):
+def jax_two_chunks(case: str, draws) -> dict:
     """One on-policy and one replay update of the JAX learner (learn for one update of
     4 envs x 8 steps, replay from the start; numpy's RandomState(2) draws 1 replay from
     Poisson(4); its params and average params replaced by moved flax inits through a
-    wrapped ``jit_init``) and of the port's update functions from the same state and
-    draws."""
-    spec = dict(CASES[request.param])
+    wrapped ``jit_init``), and its draws rebuilt from its key splits (all of them on the
+    env axis: the rollout's, then the replay's chunk indices) pushed to ``draws``.
+    Returns the JAX learner's start and end states and the port's case for
+    ``torch_dist_worker.acer_two_updates``, with the same weights."""
+    spec = dict(CASES[case])
     frame_stack = spec.pop("frame_stack", 0)
     seed = 2
     assert np.random.RandomState(seed).poisson(4) == 1
@@ -140,7 +142,6 @@ def two_chunks(request):
     jstart, = starts
 
     base = base_env(jvenv)
-    draws = ReplayDraws()
     _, kreset, _ = jax.random.split(jax.random.PRNGKey(seed), 3)
     push_reset(draws, base, kreset, NENVS)
     k = jstart.key
@@ -148,46 +149,39 @@ def two_chunks(request):
         k = push_rollout_step(draws, base, k, NENVS, jvenv.action_space)
     _, ksample = jax.random.split(k)
     draws.push("randint", jax.random.randint(ksample, (NENVS,), 0, NENVS))
+    # the port's learner as ``learn`` builds it at these hyperparameters (the rest are
+    # acer_two_updates' own: lr, q_coef, ent_coef, gamma, c, alpha, delta as ``hp``)
+    port_case = dict(env_id="CartPole-v1", num_envs=NENVS, nsteps=NSTEPS, seed=seed,
+                     frame_stack=frame_stack, dedup_frames=spec.get("dedup_frames", 0),
+                     capacity=10, nupdates=1, trust_region=spec["trust_region"],
+                     network_kwargs={"num_hidden": hp["num_hidden"]})
+    return dict(jstart=jstart, jnew=jax.device_get(jmodel.state),
+                start=convert.policy_state_dict(jstart.params), case=port_case)
 
-    tvenv = build_env("CartPole-v1", NENVS, device="cpu", frame_stack=frame_stack)
-    policy = build_policy(tvenv.observation_space, tvenv.action_space, "mlp", device="cpu",
-                          estimate_q=True, num_hidden=16)
-    start = convert.policy_state_dict(jstart.params)
-    policy.module.load_state_dict(start)
-    avg = build_policy(tvenv.observation_space, tvenv.action_space, "mlp", device="cpu",
-                       estimate_q=True, num_hidden=16).module
-    avg.load_state_dict(start)
-    opt = ClipRMSProp(policy.module.parameters(), 10.0, decay=0.99, eps=1e-5)
-    replay = acer.ChunkReplay(10, NSTEPS, tvenv.observation_space, 2,
-                              spec.get("dedup_frames", 0))
-    obs, env_state = tvenv.reset(draws)
-    np.testing.assert_array_equal(obs.numpy(), np.asarray(jstart.obs))
-    state = acer.ACERTrainState(env_state=env_state, obs=obs, replay=replay.init("cpu"),
-                                avg=avg)
-    onpolicy, replay_update = acer.make_update_fns(
-        policy, tvenv, opt, replay, nsteps=NSTEPS, lr=hp["lr"], lrschedule="linear",
-        nupdates=1, q_coef=hp["q_coef"], ent_coef=hp["ent_coef"], gamma=hp["gamma"],
-        c=hp["c"], trust_region=spec["trust_region"], alpha=hp["alpha"], delta=hp["delta"])
-    state, metrics = onpolicy(state, draws)
-    state, _ = replay_update(state, draws)
+
+@pytest.fixture(scope="module", params=list(CASES))
+def two_chunks(request):
+    """The JAX learner's two updates (``jax_two_chunks``) and the port's update
+    functions' from the same state and draws."""
+    draws = ReplayDraws()
+    run = jax_two_chunks(request.param, draws)
+    out = acer_two_updates(run["case"], draws=draws, start=run["start"])
+    np.testing.assert_array_equal(out["reset_obs"].numpy(), np.asarray(run["jstart"].obs))
     assert not draws.queue, "the port took fewer draws than the JAX update made"
-    return dict(jnew=jax.device_get(jmodel.state), tnew=state, policy=policy, opt=opt,
-                start=start, replay=replay, metrics=metrics)
+    return dict(run, out=out)
 
 
-def test_updates_match_jax(two_chunks):
-    """After the on-policy and the replay step: the params and the average params to
-    1e-4 relative of JAX's, and each tensor's change to 1e-4 of the JAX change beside
-    the two ulps in which each side rounds the f32 values it steps (a step moves a param
-    of about 0.3 by about 1e-4, and the average by a hundredth of that, so an ulp is
-    3e-4 of the one change and 3e-2 of the other); RMSProp's nu to 1e-4 relative."""
-    run = two_chunks
-    jnew = run["jnew"]
-    start = run["start"]
-    for got_module, want_params in ((run["policy"].module, jnew.params),
-                                    (run["tnew"].avg, jnew.avg_params)):
+def check_updates(jnew, start: dict, out: dict) -> None:
+    """After the on-policy and the replay step (``acer_two_updates``' ``out``): the
+    params and the average params to 1e-4 relative of JAX's, and each tensor's change
+    to 1e-4 of the JAX change beside the two ulps in which each side rounds the f32
+    values it steps (a step moves a param of about 0.3 by about 1e-4, and the average by
+    a hundredth of that, so an ulp is 3e-4 of the one change and 3e-2 of the other);
+    RMSProp's nu to 1e-4 relative."""
+    for got, want_params in ((out["replay"]["params"], jnew.params),
+                             (out["replay"]["avg"], jnew.avg_params)):
         want = convert.policy_state_dict(want_params)
-        for name, p in got_module.state_dict().items():
+        for name, p in got.items():
             np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=1e-4, err_msg=name)
             delta_want = want[name].double() - start[name].double()
             assert float(delta_want.abs().max()) > 0, name
@@ -195,11 +189,16 @@ def test_updates_match_jax(two_chunks):
             err = (p.double() - want[name].double()).abs()
             assert bool((err <= 1e-4 * delta_want.abs().max() + 2 * ulp).all()), name
     jnu = convert.policy_state_dict(jnew.opt_state[1].nu)
-    names = [n for n, _ in run["policy"].module.named_parameters()]
-    assert run["opt"].count == 2
-    for name, nu in zip(names, run["opt"].nu):
+    assert out["count"] == 2
+    for name, nu in out["nu"].items():
         assert rel_err(nu.double(), jnu[name].double()) < 1e-4, name
-    assert all(bool(torch.isfinite(v)) for v in run["metrics"].values())
+    assert all(np.isfinite(v) for v in out["onpolicy"]["metrics"].values())
+
+
+def test_updates_match_jax(two_chunks):
+    """The params, the average params and RMSProp's nu after the two updates as the JAX
+    learner's (``check_updates``)."""
+    check_updates(two_chunks["jnew"], two_chunks["start"], two_chunks["out"])
 
 
 def test_stored_rows_match_jax_bit_for_bit(two_chunks):
@@ -209,10 +208,10 @@ def test_stored_rows_match_jax_bit_for_bit(two_chunks):
     ``to_full`` and stored again by its ``to_stored``, come back bit for bit; the port's
     own ring has the same shapes and dtypes, and its actions and dones are JAX's."""
     run = two_chunks
-    replay = run["replay"]
+    replay, ring = run["out"]["layout"], run["out"]["ring"]
     jdata = {k: torch.from_numpy(np.array(v)[:NENVS])
              for k, v in run["jnew"].replay.data.items()}
-    tdata = {k: v[:NENVS] for k, v in run["tnew"].replay.data.items()}
+    tdata = {k: v[:NENVS] for k, v in ring.data.items()}
     assert set(jdata) == set(tdata) == (
         {"actions", "rewards", "mus", "dones"} | ({"obs0", "frames"} if replay.dedup else {"obs"}))
     for k in jdata:
@@ -231,4 +230,4 @@ def test_stored_rows_match_jax_bit_for_bit(two_chunks):
             np.testing.assert_array_equal(full["obs"][i].numpy(), np.asarray(want))
     assert torch.equal(tdata["actions"], jdata["actions"])
     assert torch.equal(tdata["dones"], jdata["dones"])
-    assert run["tnew"].replay.size == NENVS and run["tnew"].replay.ptr == NENVS
+    assert ring.size == NENVS and ring.ptr == NENVS

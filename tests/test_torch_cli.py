@@ -298,11 +298,11 @@ def test_algorithm_registry():
 
 @pytest.mark.parametrize("alg", ["acktr", "acer", "gail"])
 def test_new_learners_raise_for_a_mesh(alg):
-    """acktr, acer and gail take no ``mesh`` yet: it raises NotImplementedError naming
-    item 7 of ROADMAP.md's Queue 1 before anything is built, through the CLI's learner
+    """acktr, acer and gail take a ``mesh`` (tests/test_torch_mesh_*.py): one that is
+    not a ``Mesh`` raises TypeError before anything is built, through the CLI's learner
     too."""
     learn = algos.get_learn_function(alg)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         learn(env_id="CartPole-v1", total_timesteps=0, mesh=object(), device="cpu")
 
 

@@ -600,3 +600,93 @@ def test_take_rows_kernel_on_acer_flat_rows(dev):
     got = take_rows(ring, idx)
     assert take_rows.launches == before + 1
     assert torch.equal(got, ring[idx])
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group on card 0 (torchrun's variables for rank 0 of 1, the
+    rendezvous on a free local port), destroyed at the module's end."""
+    import os
+    import socket
+
+    from baselines_tpu_torch.distributed import make_mesh, maybe_initialize_distributed
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    assert maybe_initialize_distributed()
+    try:
+        yield make_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+MESH_RUNS = {
+    "trpo": dict(env_id="CartPole-v1", num_envs=8, timesteps_per_batch=256,
+                 total_timesteps=2 * 256, vf_iters=2),
+    "ddpg": dict(env_id="Pendulum-v1", num_envs=4, nb_epochs=2, nb_epoch_cycles=1,
+                 nb_rollout_steps=16, nb_train_steps=4, batch_size=32, noise_type="ou_0.2"),
+    "her": dict(env_id="PointReach-v0", num_envs=4, total_timesteps=2 * 4 * 50, n_cycles=1,
+                n_batches=4, batch_size=32, n_test_rollouts=4, num_hidden=32),
+    "acktr": dict(env_id="DiscreteIdentity-v0", num_envs=8, nsteps=20,
+                  total_timesteps=3 * 160, cold_iter=1, kfac_update=2),
+    "acer": dict(env_id="CartPole-v1", network="mlp", num_envs=8, nsteps=8,
+                 total_timesteps=4 * 64, replay_start=64, buffer_size=512, replay_ratio=2),
+    "gail": dict(env_id="BoxIdentity-v0", num_envs=8, timesteps_per_batch=256,
+                 total_timesteps=2 * 256, g_step=1, d_step=2, vf_iters=2),
+}
+
+
+@pytest.mark.parametrize("alg", list(MESH_RUNS))
+def test_one_rank_nccl_mesh_run_equals_the_run_without(dev, nccl_mesh, alg, tmp_path):
+    """Each of the six learners of the tenth slice, a few updates on the card with
+    ``mesh=`` a one-rank NCCL mesh and without it, from one seed: the same kernel
+    launches, and the params bit for bit (a one-rank all-reduce changes no value), or,
+    where two runs without the mesh already differ, within that difference."""
+    import numpy as np
+
+    from baselines_tpu_torch.algos import get_learn_function
+    from baselines_tpu_torch.core import logger
+    from baselines_tpu_torch.distributed import param_consistency_check
+
+    kwargs = dict(MESH_RUNS[alg])
+    if alg == "gail":
+        obs = np.random.RandomState(0).uniform(-1, 1, (1, 1000, 1)).astype(np.float32)
+        np.savez(tmp_path / "expert.npz", obs=obs, acs=obs)
+        kwargs["expert_path"] = str(tmp_path / "expert.npz")
+    learn = get_learn_function(alg)
+
+    def run(mesh):
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[])
+        before = take_rows.launches, fused_cnn_forward.launches
+        try:
+            model = learn(seed=0, mesh=mesh, **kwargs)
+        finally:
+            logger.reset()
+        torch.cuda.synchronize()
+        launches = (take_rows.launches - before[0], fused_cnn_forward.launches - before[1])
+        return model, {k: v.clone() for k, v in model.policy.module.state_dict().items()}, launches
+
+    _, plain, plain_launches = run(None)
+    model, meshed, launches = run(nccl_mesh)
+    assert launches == plain_launches
+    assert param_consistency_check(list(model.policy.module.parameters()), nccl_mesh, atol=0.0)
+
+    def diff(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    d = diff(meshed, plain)
+    if d != 0.0:
+        assert d <= diff(run(None)[1], plain), (alg, d)
+    assert all(bool(torch.isfinite(v).all()) for v in meshed.values())

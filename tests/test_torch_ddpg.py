@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_dist_worker import ddpg_cycle
 from torch_parity import (ReplayDraws, base_env, move_params, push_env_step, push_perturbation,
                           push_reset, rel_err)
 
@@ -143,11 +144,14 @@ CYCLE_CASES = {
 }
 
 
-def _one_cycle(case: str) -> dict:
-    """One ddpg cycle of ROLLOUT env steps of NENVS envs and TRAINS train steps: the
-    JAX learner for one epoch of one cycle, its initial params moved by a wrapped
-    ``jit_init``, and the port's cycle function (``learn`` built it, nothing trained)
-    from the same state, with the JAX learner's draws."""
+def jax_cycle(case: str, nenvs: int, draws, whole) -> dict:
+    """One ddpg cycle of ROLLOUT env steps of ``nenvs`` envs and TRAINS train steps of
+    the JAX learner (for one epoch of one cycle, its initial params moved by a wrapped
+    ``jit_init``), and its draws rebuilt from its key splits, in the port's order: the
+    env-axis ones (the reset's, the action noise, the env steps') pushed to ``draws``,
+    the ones a mesh's ranks take alike (the perturbations, the replay samples) to
+    ``whole``. Returns the JAX learner's start and end states and the spec of the
+    port's cycle (``torch_dist_worker.ddpg_cycle``), from the same weights."""
     spec = dict(CYCLE_CASES[case])
     env_id = spec.pop("env_id")
     kwargs = dict(network="mlp", num_hidden=16, seed=0, nb_epoch_cycles=1,
@@ -167,45 +171,45 @@ def _one_cycle(case: str) -> dict:
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_common, "jit_init", start_moved)
-        jend = jddpg.learn(env_id=env_id, num_envs=NENVS, nb_epochs=1, **kwargs).state
+        jend = jddpg.learn(env_id=env_id, num_envs=nenvs, nb_epochs=1, **kwargs).state
     jstart, = starts
 
-    jvenv = jax_build_env(env_id, NENVS, normalize=False)
+    jvenv = jax_build_env(env_id, nenvs, normalize=False)
     base = base_env(jvenv)
-    draws = ReplayDraws()
     _, kreset, _, _ = jax.random.split(jax.random.PRNGKey(0), 4)
-    push_reset(draws, base, kreset, NENVS)
+    push_reset(draws, base, kreset, nenvs)
     param_noise = spec["noise_type"].startswith("adaptive-param")
     key = jstart.key
     if param_noise:
         key, kp = jax.random.split(key)
-        push_perturbation(draws, kp, jstart.actor_params)
+        push_perturbation(whole, kp, jstart.actor_params)
     for _ in range(ROLLOUT):
         key, kstep, knoise = jax.random.split(key, 3)
         if not param_noise:
-            draws.push("normal", jax.random.normal(knoise, (NENVS, 1)))
-        push_env_step(draws, base, kstep, NENVS)
+            draws.push("normal", jax.random.normal(knoise, (nenvs, 1)))
+        push_env_step(draws, base, kstep, nenvs)
     for i in range(TRAINS):
         key, ksample, _, kadapt = jax.random.split(key, 4)
-        draws.push("randint", jax.random.randint(ksample, (BATCH,), 0, NENVS * ROLLOUT))
+        whole.push("randint", jax.random.randint(ksample, (BATCH,), 0,
+                                                 min(nenvs * ROLLOUT, kwargs["buffer_size"])))
         if param_noise and i % spec["param_noise_adaption_interval"] == 0:
-            push_perturbation(draws, kadapt, jend.actor_params)
-
-    tvenv = build_env(env_id, NENVS, device="cpu", normalize=False)
-    model = ddpg.learn(env=tvenv, nb_epochs=0, device="cpu", **kwargs)
+            push_perturbation(whole, kadapt, jend.actor_params)
     start = {"actor": convert.actor_state_dict(jstart.actor_params),
              "critic": convert.critic_state_dict(jstart.critic_params)}
-    model.policy.module.load_state_dict(start["actor"])
-    model.policy.critic.load_state_dict(start["critic"])
-    state = model.state
-    state.target_actor.load_state_dict(start["actor"])
-    state.target_critic.load_state_dict(start["critic"])
-    obs, env_state = tvenv.reset(draws)
-    np.testing.assert_allclose(obs.numpy(), np.asarray(jstart.obs), rtol=1e-6, atol=1e-7)
-    state = dataclasses.replace(state, obs=obs, env_state=env_state)
-    state, losses = model.cycle(state, draws)
+    return dict(jstart=jstart, jend=jend,
+                spec=dict(env_id=env_id, nenvs=nenvs, kwargs=kwargs, start=start))
+
+
+def _one_cycle(case: str) -> dict:
+    """The JAX learner's cycle of NENVS envs and the port's cycle (``learn`` built it,
+    nothing trained) from the same state, with the JAX learner's draws."""
+    draws = ReplayDraws()
+    run = jax_cycle(case, NENVS, draws, draws)
+    model, obs, state, losses = ddpg_cycle(run["spec"], draws)
+    np.testing.assert_allclose(obs.numpy(), np.asarray(run["jstart"].obs), rtol=1e-6, atol=1e-7)
     assert not draws.queue, "the port took fewer draws than the JAX learner made"
-    return dict(jend=jend, tend=state, model=model, start=start, losses=losses)
+    return dict(jend=run["jend"], tend=state, model=model, start=run["spec"]["start"],
+                losses=losses)
 
 
 @pytest.fixture(scope="module", params=list(CYCLE_CASES))
@@ -213,14 +217,12 @@ def cycle(request):
     return request.param, _one_cycle(request.param)
 
 
-def test_cycle_replay_and_statistics_match_jax(cycle):
-    """After the cycle: t, the ring's cursor, the stored transitions (to 1e-5: sin/cos
-    and the identity env's rewards round by an ulp), the observation statistics (count
-    exactly), the return statistics of popart, the OU state and the parameter noise's
-    adapted scale."""
-    case, run = cycle
-    jend, tend = run["jend"], run["tend"]
-    assert tend.t == int(jend.t) == NENVS * ROLLOUT
+def check_cycle_state(case: str, nenvs: int, jend, tend, losses, rows=slice(None)) -> None:
+    """After the cycle of ``nenvs`` envs: t, the ring's cursor, the stored transitions (to
+    1e-5: sin/cos and the identity env's rewards round by an ulp), the observation
+    statistics (count exactly), the return statistics of popart, the OU state (of the
+    envs ``rows``) and the parameter noise's adapted scale."""
+    assert tend.t == int(jend.t) == nenvs * ROLLOUT
     assert (tend.replay.ptr, tend.replay.size) == (int(jend.replay.ptr), int(jend.replay.size))
     for k, v in jend.replay.data.items():
         np.testing.assert_allclose(tend.replay.data[k].numpy(), np.asarray(v), rtol=1e-5,
@@ -232,7 +234,7 @@ def test_cycle_replay_and_statistics_match_jax(cycle):
         np.testing.assert_allclose(getattr(tend.ret_rms, f).numpy(),
                                    np.asarray(getattr(jend.ret_rms, f)), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(tend.action_noise_state.numpy(),
-                               np.asarray(jend.action_noise_state), rtol=1e-5, atol=1e-6)
+                               np.asarray(jend.action_noise_state)[rows], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(float(tend.param_noise_stddev), float(jend.param_noise_stddev),
                                rtol=1e-6)
     if case == "box_param_noise":
@@ -240,20 +242,18 @@ def test_cycle_replay_and_statistics_match_jax(cycle):
         for name, p in tend.perturbed_actor_params.items():
             want = convert.actor_state_dict(jend.perturbed_actor_params)[name]
             np.testing.assert_allclose(p.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
-    assert all(bool(torch.isfinite(x)) for x in run["losses"])
+    assert all(bool(torch.isfinite(x)) for x in losses)
 
 
-def test_cycle_params_match_jax(cycle):
+def check_cycle_params(jend, start: dict, actor, critic, tend) -> None:
     """Each param's change over the train steps to 2e-4 of the JAX change, for the actor
     and the critic (Adam, the critic's L2, the clip, popart's rescale) and their Polyak
     targets, as tests/test_torch_update.py holds ppo2's params. A target moves by tau =
     1 % of the gap a step and each side rounds it to its f32 ulp at every step, which is
     about 1e-3 of so small a change; so a target's change is held to 2e-4 of the JAX
     change beside one ulp of the target a train step."""
-    _, run = cycle
-    jend, model, tend = run["jend"], run["model"], run["tend"]
-    pairs = [("actor", model.policy.module, jend.actor_params, convert.actor_state_dict, 0),
-             ("critic", model.policy.critic, jend.critic_params, convert.critic_state_dict, 0),
+    pairs = [("actor", actor, jend.actor_params, convert.actor_state_dict, 0),
+             ("critic", critic, jend.critic_params, convert.critic_state_dict, 0),
              ("actor", tend.target_actor, jend.target_actor_params, convert.actor_state_dict,
               TRAINS),
              ("critic", tend.target_critic, jend.target_critic_params,
@@ -261,20 +261,34 @@ def test_cycle_params_match_jax(cycle):
     for which, module, jparams, to_sd, ulps in pairs:
         want = to_sd(jax.tree_util.tree_map(np.asarray, jparams))
         for name, p in module.state_dict().items():
-            base = run["start"][which][name].double()
+            base = start[which][name].double()
             delta_want = want[name].double() - base
             if float(delta_want.abs().max()) == 0:  # a layer norm under no gradient
-                assert torch.equal(p, run["start"][which][name]), name
+                assert torch.equal(p, start[which][name]), name
                 continue
             ulp = torch.from_numpy(np.spacing(np.abs(want[name].numpy()))).double()
             err = (p.double() - base - delta_want).abs()
             assert bool((err <= 2e-4 * delta_want.abs().max() + ulps * ulp).all()), (which, name)
 
 
+def test_cycle_replay_and_statistics_match_jax(cycle):
+    """The cycle's replay, statistics and noise as the JAX learner's
+    (``check_cycle_state``)."""
+    case, run = cycle
+    check_cycle_state(case, NENVS, run["jend"], run["tend"], run["losses"])
+
+
+def test_cycle_params_match_jax(cycle):
+    """The cycle's params and targets as the JAX learner's (``check_cycle_params``)."""
+    _, run = cycle
+    check_cycle_params(run["jend"], run["start"], run["model"].policy.module,
+                       run["model"].policy.critic, run["tend"])
+
+
 def test_learn_runs_on_the_cpu_and_round_trips(tmp_path):
     """The entry point at a tiny size logs the JAX keys with the last train step's
     losses; ``save``/``load`` carry the actor, the critic, their targets and both
-    running statistics bit for bit; a mesh raises naming its item."""
+    running statistics bit for bit; a mesh that is not a ``Mesh`` raises TypeError."""
     configure(dir=str(tmp_path), format_strs=["json"])
     try:
         model = ddpg.learn(env_id="Pendulum-v1", total_timesteps=400, num_envs=2,
@@ -297,7 +311,7 @@ def test_learn_runs_on_the_cpu_and_round_trips(tmp_path):
         assert all(torch.equal(sa[k], sb[k]) for k in sa)
     obs = torch.randn(3, 3)
     assert torch.equal(model.policy.mode_step(obs)[0], loaded.policy.mode_step(obs)[0])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         ddpg.learn(env_id="Pendulum-v1", total_timesteps=0, device="cpu", mesh=object())
 
 

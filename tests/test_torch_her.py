@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_dist_worker import her_cycle
 from torch_parity import ReplayDraws, move_params
 
 from baselines_tpu.algos.her import her as jher
@@ -173,13 +174,13 @@ NENVS, CYCLE_KW = 4, dict(network="mlp", seed=0, num_envs=4, n_cycles=1, n_batch
                           num_layers=2, log_interval=0)
 
 
-@pytest.fixture(scope="module")
-def cycle_runs():
+def jax_cycle(draws, whole) -> tuple:
     """JAX: her for one epoch of one cycle of 4 episodes of PointReach-v0 (T = 50) and 3
-    train steps, the actor's and critic's init moved by noise. The port: learn builds
-    the same learner (nothing trained), the params are carried across, and its cycle
-    runs with the JAX learner's draws: the episodes' resets and noise, the store's
-    slots, each train step's sample."""
+    train steps, the actor's and critic's init moved by noise; and its draws rebuilt
+    from its key splits, in the port's order: the env-axis ones (the episodes' resets
+    and noise) pushed to ``draws``, the ones a mesh's ranks take alike (the store's
+    slots, each train step's sample) to ``whole``. Returns the JAX learner's end state
+    and the port's start weights ("actor", "critic")."""
     inits = {}
 
     def moved_init(module_cls):
@@ -199,7 +200,6 @@ def cycle_runs():
                           **CYCLE_KW).state
 
     key, _, _ = jax.random.split(jax.random.PRNGKey(0), 3)
-    draws = ReplayDraws()
     key, kreset = jax.random.split(key)
     _push_point_reach_reset(draws, kreset, NENVS)
     for _ in range(50):
@@ -208,32 +208,34 @@ def cycle_runs():
         draws.push("uniform", jax.random.uniform(krand, (NENVS, 2), minval=-1.0, maxval=1.0))
         draws.push("uniform", jax.random.uniform(keps, (NENVS, 1)))
     key, kstore = jax.random.split(key)
-    draws.push("randint", jax.random.randint(kstore, (NENVS,), 0, 16, jnp.int32))
+    whole.push("randint", jax.random.randint(kstore, (NENVS,), 0, 16, jnp.int32))
     for _ in range(CYCLE_KW["n_batches"]):
         key, ksample = jax.random.split(key)
         kep, kt, kher, kfut = jax.random.split(ksample, 4)
-        draws.push("randint", jax.random.randint(kep, (32,), 0, NENVS, jnp.int32))
-        draws.push("randint", jax.random.randint(kt, (32,), 0, 50, jnp.int32))
-        draws.push("uniform", jax.random.uniform(kher, (32,)))
-        draws.push("uniform", jax.random.uniform(kfut, (32,)))
+        whole.push("randint", jax.random.randint(kep, (32,), 0, NENVS, jnp.int32))
+        whole.push("randint", jax.random.randint(kt, (32,), 0, 50, jnp.int32))
+        whole.push("uniform", jax.random.uniform(kher, (32,)))
+        whole.push("uniform", jax.random.uniform(kfut, (32,)))
+    return jend, {"actor": convert.actor_state_dict(inits["GoalActor"]),
+                  "critic": convert.critic_state_dict(inits["GoalCritic"])}
 
-    model = her.learn(env_id="PointReach-v0", total_timesteps=0, device="cpu", **CYCLE_KW)
-    start = {"actor": convert.actor_state_dict(inits["GoalActor"]),
-             "critic": convert.critic_state_dict(inits["GoalCritic"])}
-    state = model.state
-    for module, which in ((model.policy.module, "actor"), (state.target_actor, "actor"),
-                          (model.policy.critic, "critic"), (state.target_critic, "critic")):
-        module.load_state_dict(start[which])
-    state, losses = model.cycle(state, draws)
+
+@pytest.fixture(scope="module")
+def cycle_runs():
+    """The JAX learner's cycle (``jax_cycle``) and the port's: learn builds the same
+    learner (nothing trained), the params are carried across, and its cycle runs with
+    the JAX learner's draws."""
+    draws = ReplayDraws()
+    jend, start = jax_cycle(draws, draws)
+    model, state, losses = her_cycle({"kwargs": CYCLE_KW, "start": start}, draws)
     assert not draws.queue, "the port took fewer draws than the JAX learner made"
     return dict(jend=jend, tend=state, model=model, start=start, losses=losses)
 
 
-def test_cycle_buffer_and_normalizers_match_jax(cycle_runs):
+def check_cycle_buffer_and_normalizers(jend, tend) -> None:
     """After the cycle: the stored episodes (to 1e-6: the actions come from f32 networks
     whose sums run in another order), the episode count, the o and g statistics (count
     exactly) and the success rate's moving average."""
-    jend, tend = cycle_runs["jend"], cycle_runs["tend"]
     assert tend.n_episodes == int(jend.n_episodes) == NENVS
     for f, rows in (("o", 51), ("ag", 51), ("g", 50), ("u", 50)):
         np.testing.assert_allclose(getattr(tend.buffer, f).reshape(16, rows, -1).numpy(),
@@ -246,25 +248,37 @@ def test_cycle_buffer_and_normalizers_match_jax(cycle_runs):
     np.testing.assert_allclose(float(tend.success_rate), float(jend.success_rate), atol=1e-7)
 
 
-def test_cycle_params_match_jax(cycle_runs):
+def check_cycle_params(jend, start: dict, actor, critic, tend) -> None:
     """Each param's change over the train steps to 2e-4 of the JAX change, for the actor
     and the critic (Adam), and for their targets after the one Polyak step at the
     cycle's end beside the ulp to which each side rounds the f32 target, as
     tests/test_torch_update.py holds ppo2's params."""
-    jend, model, tend = cycle_runs["jend"], cycle_runs["model"], cycle_runs["tend"]
-    pairs = [("actor", model.policy.module, jend.actor_params, 0),
-             ("critic", model.policy.critic, jend.critic_params, 0),
+    pairs = [("actor", actor, jend.actor_params, 0),
+             ("critic", critic, jend.critic_params, 0),
              ("actor", tend.target_actor, jend.target_actor_params, 1),
              ("critic", tend.target_critic, jend.target_critic_params, 1)]
     for which, module, jparams, ulps in pairs:
         want = convert.actor_state_dict(jax.tree_util.tree_map(np.asarray, jparams))
         for name, p in module.state_dict().items():
-            base = cycle_runs["start"][which][name].double()
+            base = start[which][name].double()
             delta_want = want[name].double() - base
             assert float(delta_want.abs().max()) > 0, (which, name)
             ulp = torch.from_numpy(np.spacing(np.abs(want[name].numpy()))).double()
             err = (p.double() - base - delta_want).abs()
             assert bool((err <= 2e-4 * delta_want.abs().max() + ulps * ulp).all()), (which, name)
+
+
+def test_cycle_buffer_and_normalizers_match_jax(cycle_runs):
+    """The cycle's episodes and statistics as the JAX learner's
+    (``check_cycle_buffer_and_normalizers``)."""
+    check_cycle_buffer_and_normalizers(cycle_runs["jend"], cycle_runs["tend"])
+
+
+def test_cycle_params_match_jax(cycle_runs):
+    """The cycle's params and targets as the JAX learner's (``check_cycle_params``)."""
+    model = cycle_runs["model"]
+    check_cycle_params(cycle_runs["jend"], cycle_runs["start"], model.policy.module,
+                       model.policy.critic, cycle_runs["tend"])
 
 
 def test_cycle_losses_match_jax(cycle_runs):
@@ -314,7 +328,7 @@ def test_learn_logs_saves_and_plays_through_the_cli(tmp_path):
     params.json written; --save_path and --play on dict observations; --load_path of
     that file plays the same report; bc_loss with q_filter on demonstrations trains; a
     host goal env (gymnasium-robotics' FetchReach-v4, where installed) builds, and a
-    mesh raises naming its item."""
+    mesh that is not a ``Mesh`` raises TypeError."""
     argv = ["--alg=her", "--env=PointReach-v0", "--num_env=4", "--n_cycles=2",
             "--n_batches=2", "--batch_size=16", "--num_hidden=16", "--seed=0",
             "--device=cpu", "--play"]
@@ -358,5 +372,5 @@ def test_learn_logs_saves_and_plays_through_the_cli(tmp_path):
     if importlib.util.find_spec("gymnasium_robotics") is not None:
         m = her.learn(env_id="FetchReach-v4", total_timesteps=0, num_envs=2, device="cpu")
         assert m.state.obs["observation"].shape == (2, 10)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         her.learn(env_id="PointReach-v0", total_timesteps=0, device="cpu", mesh=object())

@@ -3,7 +3,8 @@ tests/test_multidevice.py): psum and pmean, the row gather, the consistency chec
 count-weighted mean of the logger's rows, RunningMeanStd merged over the ranks against
 the JAX package's ``shard_map`` on two devices, the sharded draws against a one-process
 ``Draws``, the state gather, the monitor's episodes folded over the ranks against one
-process, and the dry run of every data-parallel learner.
+process, and the dry run of every learner, each of which refuses a mesh that is not a
+``Mesh``.
 
 The ranks are subprocesses of the test (tests/torch_dist_worker.py) that import nothing
 of JAX; the JAX side runs here."""
@@ -59,6 +60,16 @@ def test_psum_and_pmean_over_two_ranks(ranks):
         assert torch.equal(out["pmean"][0], torch.full((2, 3), 1.5))
         assert torch.equal(out["pmean"][1], torch.full((5,), 0.75))
         assert out["rows"].tolist() == [0, 1, 2, 10, 11, 12]
+
+
+def test_psum_keeps_a_channels_last_layout(ranks):
+    """A channels-last tensor (a conv's gradient may come so) is summed and handed back
+    channels-last, so that a norm over it sums in the order it does without a mesh."""
+    want = torch.arange(120, dtype=torch.float32).reshape(2, 3, 4, 5) * 3
+    for out in ranks:
+        got = out["channels_last"]
+        assert torch.equal(got, want)
+        assert got.is_contiguous(memory_format=torch.channels_last)
 
 
 def test_all_gather_fields_is_one_call(ranks):
@@ -201,16 +212,19 @@ def test_local_state_layout_of_a_mesh_of_one():
     assert back.stats.ret_buffer is state.stats.ret_buffer
 
 
+LEARNERS = ["ppo2", "ppo1", "deepq", "a2c", "trpo", "acktr", "acer", "ddpg", "her", "gail"]
+
+
 def test_dryrun_multichip_on_two_gloo_ranks():
-    """ppo2, ppo1, deepq and a2c take one update each on two gloo ranks, with finite
-    params equal on both ranks (the port's __graft_entry__.dryrun_multichip)."""
+    """Every learner takes one update (a ddpg or her cycle) on two gloo ranks, with
+    finite params equal on both ranks (the port's __graft_entry__.dryrun_multichip)."""
     outs = dryrun_multichip(2, device="cpu")
     for rank, out in enumerate(outs):
-        for alg in ("ppo2", "ppo1", "deepq", "a2c"):
+        for alg in LEARNERS:
             assert f"rank {rank}/2 on cpu: {alg} ok" in out
 
 
-@pytest.mark.parametrize("alg", ["ppo2", "ppo1", "deepq", "a2c"])
+@pytest.mark.parametrize("alg", LEARNERS)
 def test_learners_refuse_what_is_not_a_mesh(alg):
     with pytest.raises(TypeError, match="Mesh"):
         get_learn_function(alg)(env_id="CartPole-v1", total_timesteps=0, device="cpu",

@@ -328,7 +328,8 @@ def test_update_value_fit_matches_jax(update):
 def test_learn_runs_on_the_cpu_saves_and_resumes(tmp_path):
     """The entry point at a tiny size: the JAX keys logged, ``save_interval`` writes the
     whole state and a second run resumes its iteration count from it; ``load_path``
-    loads params only and wins over that resume; a mesh raises naming its item."""
+    loads params only and wins over that resume; a mesh that is not a ``Mesh`` raises
+    TypeError."""
     from baselines_tpu_torch.core import logger
 
     logger.configure(dir=str(tmp_path), format_strs=["json"])
@@ -353,5 +354,5 @@ def test_learn_runs_on_the_cpu_saves_and_resumes(tmp_path):
     assert {"iters", "timesteps", "EpRewMean", "EpLenMean", "fps", "optimgain", "meankl",
             "entropy", "surrgain", "expectedimprove", "improve", "linesearch_success",
             "ev_tdlam_before"} == set(rows[0])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         trpo.learn(env_id="CartPole-v1", total_timesteps=0, device="cpu", mesh=object())

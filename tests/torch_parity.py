@@ -147,6 +147,30 @@ def push_epochs(draws: ReplayDraws, key, noptepochs: int, n: int) -> None:
         draws.push("permutation", jax.random.permutation(ekey, n))
 
 
+class RankShares:
+    """Each rank's recording of a learner's draws for a mesh of ``ndev`` ranks, in the
+    order the port takes them: a draw pushed to ``env`` has the env axis first, and each
+    rank takes its rows of it; one pushed to ``whole`` is replicated, and each rank takes
+    it whole. ``ranks[r]`` is rank r's recording, a ``ReplayDraws`` queue."""
+
+    def __init__(self, ndev: int):
+        self.ranks = [[] for _ in range(ndev)]
+        self.env = _Pusher(self, whole=False)
+        self.whole = _Pusher(self, whole=True)
+
+
+class _Pusher:
+    def __init__(self, shares: RankShares, whole: bool):
+        self.shares, self.whole = shares, whole
+
+    def push(self, kind: str, values) -> None:
+        values = np.asarray(values)
+        n = values.shape[0] // len(self.shares.ranks)
+        for r, queue in enumerate(self.shares.ranks):
+            queue.append((kind, values if self.whole else values[r * n:(r + 1) * n],
+                          self.whole))
+
+
 def policy_params(seed: int, n_actions: int = 6) -> dict:
     """Params of the JAX PolicyValueNet(NatureCNNS2D) in flax layout, made with numpy
     (quicker than flax's orthogonal init): kernels scaled like that init, gain over the
