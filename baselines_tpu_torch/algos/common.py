@@ -2,13 +2,14 @@
 
 - ``build_env``: env id -> the JAX package's wrapper chain: a device env
   ([ClipActions] -> VecTorchEnv -> [VecFlattenDictObs]), a ``native:`` id's C++ engine
-  or a gymnasium id's host pool behind ``CallbackVecEnv`` (``make_host_vec_env``), then
-  VecMonitor -> [VecRewardScale] -> [VecNormalize] -> [VecFrameStack] -> [VecS2D], the
-  monitor and the normalization across the ranks of a mesh ``axis_name``;
-  ``closing_host_envs`` closes the host pools it opens in a block.
+  or a host pool behind ``CallbackVecEnv`` (``make_host_vec_env``: the DeepMind chain
+  for an atari id, a gymnasium env otherwise), then VecMonitor -> [VecRewardScale] ->
+  [VecNormalize] -> [VecFrameStack] -> [VecS2D] -> [VecVideoRecorder], the monitor and
+  the normalization across the ranks of a mesh ``axis_name``, whose host pools seed
+  the rank's envs by their global index; ``closing_host_envs`` closes the host pools
+  it opens in a block.
 - ``build_env_pair``, ``init_pipe_state`` and ``run_rollout_pipelined``: two host env
   groups stepped in antiphase (``envs/host_pipeline.py``), ppo2's ``pipeline``.
-- ``not_ported``: the error for a reference keyword whose part is not ported yet.
 - ``run_rollout``: the T-step rollout, a Python loop where the JAX package scans;
   returns a time-major trajectory and, for a recurrent policy, the carry.
 - ``ClipAdam`` and ``ClipRMSProp``: clip by global norm, then Adam or RMSProp, then
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import weakref
 from dataclasses import dataclass
 
@@ -44,18 +46,12 @@ from baselines_tpu_torch.distributed.collectives import (all_gather_fields, all_
 from baselines_tpu_torch.distributed.mesh import barrier, gather_state, shard_state
 from baselines_tpu_torch.envs.base import ClipActions
 from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+from baselines_tpu_torch.envs.gym_bridge import host_pool
 from baselines_tpu_torch.envs.registry import get_env_type, is_torch_env, make_env
 from baselines_tpu_torch.envs.spaces import Box, DictSpace
 from baselines_tpu_torch.envs.vec import (VecFlattenDictObs, VecFrameStack, VecMonitor,
                                           VecNormalize, VecRewardScale, VecS2D, VecTorchEnv,
                                           find_normalize_state, replace_normalize_stats)
-
-
-def not_ported(algo: str, option: str, where: str):
-    """Raise for a keyword of the JAX package's ``learn`` whose part is not ported yet,
-    naming the item of ROADMAP.md's Queue 1 that brings it."""
-    raise NotImplementedError(f"{algo}'s {option} is not ported yet; it comes with {where} "
-                              "of ROADMAP.md's Queue 1")
 
 
 # the host pools build_env opened and nothing closed yet
@@ -76,9 +72,10 @@ def closing_host_envs():
                 venv.close()
 
 
-def gym_thunk(env_id: str, env_type: str):
+def gym_thunk(env_id: str, env_type: str, need_render: bool = False):
     """A function that makes the gymnasium env ``env_id`` (with gymnasium-robotics'
-    envs registered for a robotics id), in the pool's worker."""
+    envs registered for a robotics id, and an rgb_array render surface when
+    ``need_render``), in the pool's worker."""
 
     def thunk():
         import gymnasium as gym
@@ -87,30 +84,45 @@ def gym_thunk(env_id: str, env_type: str):
             import gymnasium_robotics
 
             gym.register_envs(gymnasium_robotics)
-        return gym.make(env_id)
+        return gym.make(env_id, render_mode="rgb_array" if need_render else None)
 
     return thunk
 
 
-def host_pool(thunk, num_envs: int):
-    """Worker processes for more than one env, the env in this process for one
-    (cmd_util.py:56-59)."""
-    from baselines_tpu_torch.envs.gym_bridge import HostDummyVecEnv, HostSubprocVecEnv
-
-    return HostSubprocVecEnv([thunk] * num_envs) if num_envs > 1 else HostDummyVecEnv([thunk])
+def _host_bridge(venv) -> CallbackVecEnv:
+    """The CallbackVecEnv at the bottom of a chain of vec wrappers."""
+    while not isinstance(venv, CallbackVecEnv):
+        venv = venv.venv
+    return venv
 
 
 def make_host_vec_env(env_id: str, num_envs: int, env_type: str, *, device,
-                      keep_dict_obs: bool = False):
-    """A gymnasium id's host pool behind CallbackVecEnv (common.py:32-81); dict
-    observations are flattened to observation ++ desired_goal by VecFlattenDictObs
-    (make_robotics_env's FlattenDictWrapper, cmd_util.py:124-135) unless
-    ``keep_dict_obs``. Atari and retro ids need their wrapper chains, not ported yet."""
-    if env_type in ("atari", "retro"):
-        not_ported("build_env", f"the {env_type} host envs ({env_id!r})",
-                   "item 8 (envs/atari.py, envs/retro_wrappers.py)")
-    venv = CallbackVecEnv(host_pool(gym_thunk(env_id, env_type), num_envs), device=device)
-    _OPEN_HOST_ENVS.add(venv)
+                      need_render: bool = False, gamestate=None, keep_dict_obs: bool = False,
+                      first_env: int = 0):
+    """A host pool behind CallbackVecEnv (common.py:32-81), its first env the global
+    env ``first_env``. An atari id takes the DeepMind chain, frame-stacked on the device
+    (``envs/atari.py``); a retro id the retro chain (``envs/retro_wrappers.py``), which
+    cannot render; any other id a gymnasium pool, whose dict observations are flattened
+    to observation ++ desired_goal by VecFlattenDictObs (make_robotics_env's
+    FlattenDictWrapper, cmd_util.py:124-135) unless ``keep_dict_obs``. ``need_render``
+    makes the envs render rgb frames, for video capture."""
+    if env_type == "atari":
+        from baselines_tpu_torch.envs.atari import make_atari_vec_env
+
+        venv = make_atari_vec_env(env_id, num_envs, need_render=need_render, device=device,
+                                  first_env=first_env)
+    elif env_type == "retro":
+        if need_render:
+            raise ValueError("--save_video_interval is unsupported for retro envs; remove "
+                             "the flag or record from a gymnasium env")
+        from baselines_tpu_torch.envs.retro_wrappers import make_retro_vec_env
+
+        venv = make_retro_vec_env(env_id, num_envs, gamestate=gamestate, device=device,
+                                  first_env=first_env)
+    else:
+        venv = CallbackVecEnv(host_pool(gym_thunk(env_id, env_type, need_render), num_envs,
+                                        first_env), device=device)
+    _OPEN_HOST_ENVS.add(_host_bridge(venv))
     if not keep_dict_obs and isinstance(venv.observation_space, DictSpace):
         venv = VecFlattenDictObs(venv)
     return venv
@@ -118,35 +130,46 @@ def make_host_vec_env(env_id: str, num_envs: int, env_type: str, *, device,
 
 def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = None,
               reward_scale: float = 1.0, frame_stack: int = 0, s2d: int = 0,
-              axis_name=None, keep_dict_obs: bool = False):
+              axis_name=None, keep_dict_obs: bool = False, save_video_interval: int = 0,
+              save_video_length: int = 200, video_dir: str | None = None, gamestate=None):
     """The chain of common.py:84-187. The base: for a device env, ClipActions on a
     ``Box`` action space, VecTorchEnv, and VecFlattenDictObs on dict observations unless
     ``keep_dict_obs`` (her reads the dicts; the other learners see observation ++
     desired_goal, as the JAX package's host goal envs give them, common.py:72-80); for a
     ``native:`` id the C++ engine (``native/``) behind CallbackVecEnv, also for ids that
-    exist as device envs; for any other id a gymnasium host pool
-    (``make_host_vec_env``). Then VecMonitor, VecRewardScale when ``reward_scale`` != 1
-    (outside the monitor, whose statistics stay raw), VecNormalize when ``normalize``
-    (None: only for mujoco envs), VecFrameStack when ``frame_stack`` > 1, VecS2D when
-    ``s2d``. Under a mesh ``axis_name``, ``num_envs`` is the rank's envs, and the
-    monitor and the normalization take every rank's."""
+    exist as device envs; for any other id a host pool (``make_host_vec_env``: the
+    DeepMind chain for an atari id, gymnasium's env otherwise; ``gamestate`` goes to a
+    retro chain, which the env types of ``get_env_type`` never select, as in the JAX
+    package). Then VecMonitor, VecRewardScale when ``reward_scale`` != 1 (outside the
+    monitor, whose statistics stay raw), VecNormalize when ``normalize`` (None: only for
+    mujoco envs), VecFrameStack when ``frame_stack`` > 1, VecS2D when ``s2d``, and
+    outermost VecVideoRecorder when ``save_video_interval``: a video of
+    ``save_video_length`` frames every ``save_video_interval`` steps, into ``video_dir``
+    (the log dir's ``videos/`` when None; native ids do not render). Under a mesh
+    ``axis_name``, ``num_envs`` is the rank's envs, a host pool's first env is the
+    rank's first global env, and the monitor and the normalization take every rank's."""
     env_type = get_env_type(env_id)
+    first_env = 0 if axis_name is None else axis_name.rank * num_envs
+    torch_env = host_venv = None
     if env_id.startswith("native:"):
         from baselines_tpu_torch.native import NativeVecEnv
 
-        venv = CallbackVecEnv(NativeVecEnv(env_id.split(":", 1)[1], num_envs), device=device)
+        if save_video_interval:
+            raise ValueError("--save_video_interval: native envs do not render")
+        venv = CallbackVecEnv(NativeVecEnv(env_id.split(":", 1)[1], num_envs,
+                                           first_env=first_env), device=device)
         _OPEN_HOST_ENVS.add(venv)
         env_type = None
     elif is_torch_env(env_id):
-        env = make_env(env_id)
-        if isinstance(env.action_space, Box):
-            env = ClipActions(env)
+        torch_env = make_env(env_id)
+        env = ClipActions(torch_env) if isinstance(torch_env.action_space, Box) else torch_env
         venv = VecTorchEnv(env, num_envs, device)
         if not keep_dict_obs and isinstance(venv.observation_space, DictSpace):
             venv = VecFlattenDictObs(venv)
     else:
-        venv = make_host_vec_env(env_id, num_envs, env_type, device=device,
-                                 keep_dict_obs=keep_dict_obs)
+        venv = host_venv = make_host_vec_env(
+            env_id, num_envs, env_type, device=device, need_render=save_video_interval > 0,
+            gamestate=gamestate, keep_dict_obs=keep_dict_obs, first_env=first_env)
     venv = VecMonitor(venv, axis_name=axis_name)
     if reward_scale != 1.0:
         venv = VecRewardScale(venv, reward_scale)
@@ -160,16 +183,32 @@ def build_env(env_id: str, num_envs: int, *, device, normalize: bool | None = No
         if s2d < 2:
             raise ValueError(f"--s2d must be a block size >= 2, got {s2d}")
         venv = VecS2D(venv, s2d)
+    if save_video_interval:
+        from baselines_tpu_torch.core import logger
+        from baselines_tpu_torch.envs.video import VecVideoRecorder, torch_env_frame_fn
+
+        if torch_env is not None:
+            frame_fn = torch_env_frame_fn(torch_env)
+        else:
+            pool = _host_bridge(host_venv).host
+            frame_fn = lambda _state: pool.render()  # noqa: E731
+        venv = VecVideoRecorder(
+            venv, video_dir or os.path.join(logger.get_dir() or ".", "videos"),
+            record_video_trigger=lambda step: step % save_video_interval == 0,
+            video_length=save_video_length, frame_fn=frame_fn)
     return venv
 
 
 def build_env_pair(env_id: str, num_envs: int, *, device, **env_kwargs):
     """Two chains of ``num_envs / 2`` host envs each, with pools of their own, for the
-    antiphase rollout (common.py:190-204, ``envs/host_pipeline.py``)."""
+    antiphase rollout (common.py:190-204, ``envs/host_pipeline.py``); no video capture
+    there."""
     from baselines_tpu_torch.envs.host_pipeline import PipelinedHostVecPair
 
     if num_envs < 2 or num_envs % 2:
         raise AssertionError("pipelining needs an even env count >= 2")
+    if env_kwargs.get("save_video_interval"):
+        raise AssertionError("video capture is not supported on the pipelined rollout path")
     half = num_envs // 2
     return PipelinedHostVecPair(build_env(env_id, half, device=device, **env_kwargs),
                                 build_env(env_id, half, device=device, **env_kwargs))

@@ -41,8 +41,9 @@ cycle's episodes (and their last-step successes) are gathered from every rank in
 order in one call, so every rank stores the one-process episodes and folds them into
 ``o_rms`` and ``g_rms``; the store and the train steps draw from the replicated
 generator; the gradients are averaged all the same. The evaluator's success rate takes
-every rank's episodes. Host goal envs take no mesh: a pool's reset seed is one draw,
-which has no env axis to shard (``CallbackVecEnv.reset``).
+every rank's episodes. A rank's host pools hold its ``num_envs / size`` envs, seeded by
+their global index from the one reset seed that every rank draws alike
+(``CallbackVecEnv.reset``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ import torch
 import torch.nn as nn
 
 from baselines_tpu_torch.algos.common import (ClipAdam, Model, gym_thunk, host_pool,
-                                              learner_device, not_ported, polyak_update)
+                                              learner_device, polyak_update)
 from baselines_tpu_torch.core import checkpoint as ckpt
 from baselines_tpu_torch.core import logger
 from baselines_tpu_torch.core.rng import Draws, ShardedDraws
@@ -229,15 +230,13 @@ def learn(
         n_cycles = DEFAULT_ENV_PARAMS.get((env_id or "").split("-v")[0], {}).get("n_cycles", 50)
 
     host_mode = env is None and env_id is not None and not is_torch_env(env_id)
-    if host_mode and mesh is not None:
-        not_ported("her", f"mesh with the host goal env {env_id!r}",
-                   "item 8 (host envs under a mesh)")
     nl = local_num_envs(mesh, num_envs)  # the episodes a rank rolls
-    if host_mode:
+    if host_mode:  # a rank's pools hold its envs, seeded by their global index
         thunk = gym_thunk(env_id, get_env_type(env_id))
-        train_venv = CallbackVecEnv(host_pool(thunk, num_envs), info_keys=("is_success",),
+        first_env = 0 if mesh is None else mesh.rank * nl
+        train_venv = CallbackVecEnv(host_pool(thunk, nl, first_env), info_keys=("is_success",),
                                     device=device)
-        eval_venv = CallbackVecEnv(host_pool(thunk, num_envs), info_keys=("is_success",),
+        eval_venv = CallbackVecEnv(host_pool(thunk, nl, first_env), info_keys=("is_success",),
                                    device=device)
         probe = thunk()
         T = probe.spec.max_episode_steps

@@ -2,11 +2,12 @@
 
 Same contract as baselines/logger.py: ``logkv`` last-wins, ``logkv_mean`` running
 mean, ``dumpkvs`` writes the accumulated row to every output format and clears it;
-formats are the human table, json-lines and csv. When several processes form a
+formats are the human table, json-lines, csv and tensorboard scalars (written by
+``torch.utils.tensorboard``, which needs the tensorboard package, imported where the
+format is made). When several processes form a
 ``torch.distributed`` group, ``dumpkvs`` is collective: the row is the count-weighted
 mean over the processes and process 0 alone writes it (logger.py:226-248);
-``configure_for_process`` gives the other processes a log of their own. The tensorboard
-format is not ported yet.
+``configure_for_process`` gives the other processes a log of their own.
 """
 
 from __future__ import annotations
@@ -130,6 +131,28 @@ class CSVOutputFormat(KVWriter):
         self.file.close()
 
 
+class TensorBoardOutputFormat(KVWriter):
+    """Each row's numeric values as tensorboard scalars at step 1, 2, ... of the rows
+    (logger.py:162-180)."""
+
+    def __init__(self, logdir):
+        from torch.utils.tensorboard import SummaryWriter
+
+        os.makedirs(logdir, exist_ok=True)
+        self.writer = SummaryWriter(log_dir=logdir)
+        self.step = 1
+
+    def writekvs(self, kvs):
+        for k, v in kvs.items():
+            if hasattr(v, "__float__"):
+                self.writer.add_scalar(k, float(v), self.step)
+        self.writer.flush()
+        self.step += 1
+
+    def close(self):
+        self.writer.close()
+
+
 def make_output_format(fmt, ev_dir, log_suffix=""):
     """logger.py:174-187."""
     os.makedirs(ev_dir, exist_ok=True)
@@ -141,6 +164,8 @@ def make_output_format(fmt, ev_dir, log_suffix=""):
         return JSONOutputFormat(osp.join(ev_dir, f"progress{log_suffix}.json"))
     if fmt == "csv":
         return CSVOutputFormat(osp.join(ev_dir, f"progress{log_suffix}.csv"))
+    if fmt == "tensorboard":
+        return TensorBoardOutputFormat(osp.join(ev_dir, f"tb{log_suffix}"))
     raise ValueError(f"Unknown format specified: {fmt}")
 
 

@@ -8,7 +8,8 @@
 card r, or all on the CPU), joined through a ``file://`` rendezvous in a temporary
 directory. Each trains every learner with an ``mlp`` under ``mesh=make_mesh()``, one
 update (or a few deepq training iterations, one ddpg or her cycle) each: ppo2, ppo1,
-deepq, a2c, trpo, acktr and acer on CartPole-v1, ddpg on Pendulum-v1, her on
+deepq, a2c, trpo, acktr and acer on CartPole-v1, ppo2 on the native engine's CartPole
+(a host pool under the mesh), ddpg on Pendulum-v1, her on
 PointReach-v0 and gail on BoxIdentity-v0 from an expert ``.npz`` that the rank writes
 beside the rendezvous; and checks that the params are finite and equal on every rank.
 It returns each rank's report and raises when a rank fails or takes longer than
@@ -49,6 +50,9 @@ def _rank_main(rank: int, world: int, rendezvous: str, device: str) -> None:
     np.savez(expert, obs=expert_obs, acs=expert_obs)
     runs = {
         "ppo2": dict(total_timesteps=num_envs * 8, nsteps=8, nminibatches=2, noptepochs=2),
+        "ppo2 native": dict(alg="ppo2", env_id="native:CartPole-v1",
+                            total_timesteps=num_envs * 8, nsteps=8, nminibatches=2,
+                            noptepochs=2),
         "ppo1": dict(total_timesteps=num_envs * 16, timesteps_per_actorbatch=num_envs * 16,
                      optim_epochs=2, optim_batchsize=4 * world),
         "deepq": dict(total_timesteps=num_envs * 24, learning_starts=num_envs * 8,
@@ -68,16 +72,17 @@ def _rank_main(rank: int, world: int, rendezvous: str, device: str) -> None:
                      timesteps_per_batch=num_envs * 16, vf_iters=1, g_step=1,
                      expert_path=expert),
     }
-    for alg, kwargs in runs.items():
+    for name, kwargs in runs.items():
         kwargs = {"env_id": "CartPole-v1", **kwargs}
+        alg = kwargs.pop("alg", name)
         model = get_learn_function(alg)(network="mlp", seed=0, num_envs=num_envs, mesh=mesh,
                                         **kwargs)
         params = list(model.policy.module.parameters())
         if not all(bool(torch.isfinite(p).all()) for p in params):
-            raise RuntimeError(f"{alg}: params are not finite on rank {rank}")
+            raise RuntimeError(f"{name}: params are not finite on rank {rank}")
         if not param_consistency_check(params, mesh, atol=0.0):
-            raise RuntimeError(f"{alg}: the ranks' params differ")
-        print(f"rank {rank}/{world} on {mesh.device}: {alg} ok", flush=True)
+            raise RuntimeError(f"{name}: the ranks' params differ")
+        print(f"rank {rank}/{world} on {mesh.device}: {name} ok", flush=True)
     torch.distributed.destroy_process_group()
 
 

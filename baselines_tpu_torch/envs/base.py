@@ -42,6 +42,11 @@ class TorchEnv:
     def unwrapped(self) -> "TorchEnv":
         return self
 
+    def render_frame(self, state):
+        """An HWC u8 image of one env's state (each field a scalar), for video capture;
+        an env that renders overrides it (base.py:53-55)."""
+        raise NotImplementedError(f"{type(self).__name__} does not support rendering")
+
 
 class EnvWrapper(TorchEnv):
     """Forwards reset and step to the env it wraps (base.py:58-72)."""

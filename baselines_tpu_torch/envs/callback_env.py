@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.envs.spaces import Box, DictSpace
 
 
@@ -37,10 +38,10 @@ def _downcast_space(space):
 
 
 class CallbackVecEnv:
-    def __init__(self, host_env, info_keys: tuple = (), device="cpu"):
+    def __init__(self, host_env, info_keys: tuple = (), device=None):
         self.host = host_env
         self.num_envs = host_env.num_envs
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.observation_space = _downcast_space(host_env.observation_space)
         self.action_space = host_env.action_space
         self.info_keys = tuple(info_keys)
@@ -99,8 +100,10 @@ class CallbackVecEnv:
 
     def reset(self, draws):
         """Reset the pool with a seed drawn in [0, 2**31 - 1) (callback_env.py:126-131);
-        the state is the step count, 0."""
-        seed = int(draws.randint(0, 2**31 - 1, ()))
+        the state is the step count, 0. The seed is one number for the whole mesh: under
+        a ``ShardedDraws`` it comes from the replicated draws, so every rank draws what
+        the one process draws, and a rank's pool seeds its envs by their global index."""
+        seed = int(getattr(draws, "replicated", draws).randint(0, 2**31 - 1, ()))
         return self._cast_obs(self.host.reset(seed)), 0
 
     def step(self, draws, state, actions):

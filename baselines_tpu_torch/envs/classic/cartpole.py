@@ -4,8 +4,8 @@ The classic Barto-Sutton-Anderson cart-pole as gym's CartPoleEnv implements it: 
 integration in f32, force +-10, tau 0.02, termination at |x| > 2.4 or |theta| > 12
 degrees, reward 1 a step. The constants and the order of the arithmetic are the JAX
 env's. ``torch.sin`` and ``torch.cos`` differ from XLA's by an ulp on some inputs, so a
-step agrees with the JAX env's to rounding, not bit for bit. The frame renderer waits
-for the video recorder.
+step agrees with the JAX env's to rounding, not bit for bit. ``render_frame`` draws one
+env's state for video capture, the JAX env's drawing in float64 numpy.
 """
 
 from __future__ import annotations
@@ -81,6 +81,24 @@ class CartPole(TorchEnv):
                 | (theta < -self.THETA_THRESHOLD) | (theta > self.THETA_THRESHOLD))
         reward = torch.ones_like(x)
         return self._obs(new_state), new_state, reward, done, {}
+
+    def render_frame(self, state: CartPoleState, width: int = 600, height: int = 400):
+        """One env's state drawn as gym's CartPoleEnv draws it, simplified
+        (cartpole.py:89-111): the track, the cart and the pole on white."""
+        frame = np.full((height, width, 3), 255, np.uint8)
+        scale = width / (self.X_THRESHOLD * 2)
+        carty = int(height * 0.8)
+        cartx = int(float(state.x) * scale + width / 2.0)
+        frame[carty + 20:carty + 22, :] = 0
+        frame[carty:carty + 20, max(cartx - 30, 0):min(cartx + 30, width)] = (0, 0, 0)
+        pole_len = int(scale * self.LENGTH * 2)
+        theta = float(state.theta)
+        for r in range(pole_len):
+            px = int(cartx + np.sin(theta) * r)
+            py = int(carty - np.cos(theta) * r)
+            if 0 <= px < width - 3 and 0 <= py < height - 3:
+                frame[py:py + 3, px:px + 3] = (202, 152, 101)
+        return frame
 
 
 def make_cartpole(version: int = 1) -> TorchEnv:

@@ -6,13 +6,17 @@
   worker (:44-58), daemon workers (:63-64), auto-reset inside the worker (:8-12).
 - ``HostShmemVecEnv`` ≙ ShmemVecEnv (shmem_vec_env.py:20-141): the observations come
   back through shared memory, the pipe carries only rewards, dones and infos.
+- ``host_pool`` picks the Subproc pool for more than one env, the Dummy one for one.
 - ``GymAdapter`` folds gymnasium's (terminated, truncated) into the one done of the
   gym-0.x API the reference is written against and keeps the Monitor's episode
   accounting (bench/monitor.py:10-94) as ``info['episode']`` on done.
 
 Every pool has the ``HostVecEnv`` interface: ``reset(seed) -> obs`` and ``step(actions)
 -> (obs, rewards, dones, infos)`` on numpy arrays, split into ``step_async`` and
-``step_wait``. ``envs/callback_env.py`` puts a pool behind the port's vec interface.
+``step_wait``. A reset seeds env i with ``seed + first_env + i``: ``first_env`` is the
+global index of the pool's first env, nonzero for a rank of a mesh, whose pool holds
+envs ``first_env .. first_env + num_envs - 1`` of the one-process run.
+``envs/callback_env.py`` puts a pool behind the port's vec interface.
 
 The workers start with ``fork`` by default and receive numpy actions only: they build
 their envs after the fork and never touch torch, so a live CUDA context in the parent
@@ -29,11 +33,14 @@ from typing import Callable, List
 import numpy as np
 
 from baselines_tpu_torch.core.tile_images import tile_images
-from baselines_tpu_torch.envs.spaces import Box, DictSpace, Discrete
+from baselines_tpu_torch.envs.spaces import Box, DictSpace, Discrete, Space
 
 
 def convert_space(space):
-    """A gymnasium space as the port's space."""
+    """A gymnasium space as the port's space; one of the port's own as it is (a stand-in
+    env, or a wrapper that declares the port's spaces, needs no gymnasium)."""
+    if isinstance(space, Space):
+        return space
     import gymnasium as gym
 
     if isinstance(space, gym.spaces.Discrete):
@@ -127,14 +134,15 @@ class HostVecEnv:
 
 
 class HostDummyVecEnv(HostVecEnv):
-    def __init__(self, env_fns: List[Callable]):
+    def __init__(self, env_fns: List[Callable], first_env: int = 0):
         self.envs = [GymAdapter(fn()) for fn in env_fns]
         self.num_envs = len(self.envs)
+        self.first_env = int(first_env)
         self.observation_space = self.envs[0].observation_space
         self.action_space = self.envs[0].action_space
 
     def reset(self, seed=None):
-        return stack_obs([e.reset(None if seed is None else seed + i)
+        return stack_obs([e.reset(None if seed is None else seed + self.first_env + i)
                           for i, e in enumerate(self.envs)])
 
     def step(self, actions):
@@ -196,8 +204,10 @@ class _CloudpickleWrapper:
 
 
 class HostSubprocVecEnv(HostVecEnv):
-    def __init__(self, env_fns, in_series: int = 1, context: str = "fork"):
+    def __init__(self, env_fns, in_series: int = 1, context: str = "fork",
+                 first_env: int = 0):
         self.num_envs = len(env_fns)
+        self.first_env = int(first_env)
         if self.num_envs % in_series:
             raise ValueError(f"in_series {in_series} does not divide {self.num_envs} envs")
         self.in_series = in_series
@@ -219,7 +229,8 @@ class HostSubprocVecEnv(HostVecEnv):
 
     def reset(self, seed=None):
         for i, remote in enumerate(self.remotes):
-            remote.send(("reset", None if seed is None else seed + i * self.in_series))
+            remote.send(("reset", None if seed is None
+                         else seed + self.first_env + i * self.in_series))
         return stack_obs([o for remote in self.remotes for o in remote.recv()])
 
     def step_async(self, actions):
@@ -260,7 +271,8 @@ class HostShmemVecEnv(HostSubprocVecEnv):
     (shmem_vec_env.py:20-141); the pipe carries the rewards, dones and infos. Flat
     observations only."""
 
-    def __init__(self, env_fns, context: str = "fork"):
+    def __init__(self, env_fns, context: str = "fork", first_env: int = 0):
+        self.first_env = int(first_env)
         probe = GymAdapter(env_fns[0]())
         obs_space = probe.observation_space
         probe.close()
@@ -297,7 +309,7 @@ class HostShmemVecEnv(HostSubprocVecEnv):
 
     def reset(self, seed=None):
         for i, remote in enumerate(self.remotes):
-            remote.send(("reset", None if seed is None else seed + i))
+            remote.send(("reset", None if seed is None else seed + self.first_env + i))
         for remote in self.remotes:
             remote.recv()
         return self._read_obs()
@@ -340,3 +352,12 @@ def _shmem_worker(remote, parent_remote, env_fn_wrapper, shm_buf, obs_shape, obs
         pass
     finally:
         env.close()
+
+
+def host_pool(thunk, num_envs: int, first_env: int = 0) -> HostVecEnv:
+    """``num_envs`` envs of ``thunk``: worker processes for more than one, the env in
+    this process for one (cmd_util.py:56-59); ``first_env`` is the global index of the
+    pool's first env."""
+    if num_envs > 1:
+        return HostSubprocVecEnv([thunk] * num_envs, first_env=first_env)
+    return HostDummyVecEnv([thunk], first_env=first_env)

@@ -10,11 +10,11 @@ terminal observation is ``info['terminal_obs']``.
 Ported: ``VecTorchEnv`` (the batch with auto-reset, of tensor or dict observations),
 ``VecWrapper``, ``VecMonitor`` with its ``EpisodeStats`` ring of the last 100 episodes,
 ``VecFrameStack``, ``VecRewardScale``, ``VecNormalize`` with ``find_normalize_state``
-and ``replace_normalize_stats``, ``VecS2D`` with the packed 3-D layout, and the dict-obs
-wrappers ``VecExtractDictObs`` and ``VecFlattenDictObs``. Under a data-parallel mesh
-(``axis_name``), VecMonitor's ring (after ``VecMonitor.sync_stats``) and VecNormalize's
-statistics are those of every rank's envs, held alike by every rank. A pipelined env
-pair's state (``envs/host_pipeline.PipeState``) has both groups' monitors merged by
+and ``replace_normalize_stats``, ``VecS2D`` with the packed 3-D and flat layouts, and
+the dict-obs wrappers ``VecExtractDictObs`` and ``VecFlattenDictObs``. Under a
+data-parallel mesh (``axis_name``), VecMonitor's ring (after ``VecMonitor.sync_stats``)
+and VecNormalize's statistics are those of every rank's envs, held alike by every rank.
+A pipelined env pair's state (``envs/host_pipeline.PipeState``) has both groups' monitors merged by
 ``VecMonitor.get_stats`` and both groups' statistics read and set by the normalize
 helpers.
 """
@@ -328,23 +328,30 @@ class VecMonitor(VecWrapper):
 class VecS2D(VecWrapper):
     """Space-to-depth packing of the observations: (H, W, C) -> (H/b, W/b, b*b*C), so
     the Nature CNN's 8x8/s4 conv1 becomes an exactly equivalent 2x2/s1 conv on
-    21x21x64 frames. Only the packed 3-D layout (``flat=False``) is ported."""
+    21x21x64 frames. With ``flat`` each packed frame is one row of H*W*C values, the
+    same bytes in the same order, and the space's ``packed_shape`` is the 3-D shape
+    (vec.py:364-407): ``cnn_s2d`` and the fused kernel read such rows as views of the
+    3-D frames."""
 
-    def __init__(self, venv, block: int = 4):
+    def __init__(self, venv, block: int = 4, flat: bool = False):
         super().__init__(venv)
         sp = venv.observation_space
         h, w, c = sp.shape
         if h % block or w % block:
             raise ValueError(f"obs {sp.shape} not divisible by s2d block {block}")
         self.block = int(block)
+        self.flat = bool(flat)
         packed = (h // block, w // block, block * block * c)
-        self.observation_space = Box(np.min(sp.low), np.max(sp.high), packed, dtype=sp.dtype)
+        shape = (int(np.prod(packed)),) if self.flat else packed
+        self.observation_space = Box(np.min(sp.low), np.max(sp.high), shape, dtype=sp.dtype)
+        if self.flat:
+            self.observation_space.packed_shape = packed
 
     def _pack(self, obs: torch.Tensor) -> torch.Tensor:
         b = self.block
         n, h, w, c = obs.shape
         x = obs.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
-        return x.reshape(n, h // b, w // b, b * b * c)
+        return x.reshape(n, -1) if self.flat else x.reshape(n, h // b, w // b, b * b * c)
 
     def reset(self, draws):
         obs, inner = self.venv.reset(draws)

@@ -6,7 +6,10 @@ call, OpenMP-parallel over the envs from 64 envs on, so the host side of a step 
 function call. ``envs/callback_env.py`` puts it behind the port's vec interface, and the
 ``native:`` env ids (``native:CartPole-v1``) select it in ``algos.common.build_env``.
 
-The source is the JAX package's, unchanged, so the two engines step bit for bit alike.
+The source is the JAX package's, with one addition: ``btenv_create`` takes the global
+index of the pool's first env (``first_env``), which seeds env i's generator as env
+``first_env + i`` of one pool, so that a rank of a mesh steps its rows of the
+one-process batch. With ``first_env=0`` the two engines step bit for bit alike.
 It is compiled with g++ at first use into ``baselines_tpu_torch/_build/``, under a name
 keyed by the source's hash. A build or load that fails raises with the compiler's
 error: no id falls back to another engine.
@@ -77,7 +80,8 @@ def library():
             return _lib
         lib = ctypes.CDLL(str(build()))
         lib.btenv_create.restype = ctypes.c_void_p
-        lib.btenv_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_uint64]
+        lib.btenv_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_uint64,
+                                      ctypes.c_uint64]
         lib.btenv_destroy.argtypes = [ctypes.c_void_p]
         for fn in ("btenv_obs_dim", "btenv_act_dim", "btenv_n_actions", "btenv_state_dim",
                    "btenv_max_steps"):
@@ -97,16 +101,19 @@ def library():
 class NativeVecEnv:
     """A batch of ``num_envs`` native envs behind the host vec env interface, one C call
     a step (native/__init__.py:97-198). The spaces are those of the port's device env
-    of the same id."""
+    of the same id. ``first_env`` is the global index of the batch's first env, nonzero
+    for a rank of a mesh."""
 
-    def __init__(self, env_id: str, num_envs: int, seed: int = 0):
+    def __init__(self, env_id: str, num_envs: int, seed: int = 0, first_env: int = 0):
         if env_id not in NATIVE_ENV_IDS:
             raise ValueError(f"the native engine does not implement {env_id!r}; it has "
                              f"{list(NATIVE_ENV_IDS)}")
         self._lib = library()
         self.env_id = env_id
         self.num_envs = int(num_envs)
-        self._handle = self._lib.btenv_create(env_id.encode(), self.num_envs, seed)
+        self.first_env = int(first_env)
+        self._handle = self._lib.btenv_create(env_id.encode(), self.num_envs, seed,
+                                              self.first_env)
         self._obs_dim = self._lib.btenv_obs_dim(self._handle)
         self._act_dim = self._lib.btenv_act_dim(self._handle)
         self.state_dim = self._lib.btenv_state_dim(self._handle)
@@ -128,7 +135,7 @@ class NativeVecEnv:
         if seed is not None:
             self._lib.btenv_destroy(self._handle)
             self._handle = self._lib.btenv_create(self.env_id.encode(), self.num_envs,
-                                                  int(seed))
+                                                  int(seed), self.first_env)
         self._lib.btenv_reset(self._handle, self._obs)
         return self._obs.copy()
 

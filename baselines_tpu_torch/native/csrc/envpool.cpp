@@ -18,7 +18,10 @@
 //   - TimeLimit truncation is folded into `done` (gym-0.x combined done).
 //
 // C ABI (ctypes-friendly; see baselines_tpu/native/__init__.py):
-//   btenv_create(name, num_envs, seed) -> handle
+//   btenv_create(name, num_envs, seed, first_env) -> handle
+//     (env i of the pool is env first_env + i of the whole batch and draws from
+//     the generator seeded by (seed, first_env + i), so that a data-parallel
+//     rank's pool steps the envs the one-process pool steps in those places)
 //   btenv_reset(h, obs_out)
 //   btenv_step(h, actions_f32, obs_out, rew_out, done_out, terminal_obs_out)
 //   btenv_get_state / btenv_set_state  (testing: physics state round-trip)
@@ -280,7 +283,7 @@ bool env_step_one(Pool& p, int i, const float* act, float* obs, float* rew) {
 
 extern "C" {
 
-void* btenv_create(const char* name, int num_envs, uint64_t seed) {
+void* btenv_create(const char* name, int num_envs, uint64_t seed, uint64_t first_env) {
   std::string id(name);
   Pool* p = new Pool();
   p->n = num_envs;
@@ -307,7 +310,7 @@ void* btenv_create(const char* name, int num_envs, uint64_t seed) {
   p->elapsed.assign(num_envs, 0);
   p->rng.reserve(num_envs);
   for (int i = 0; i < num_envs; ++i)
-    p->rng.emplace_back(seed * 0x2545F4914F6CDD1DULL + (uint64_t)i + 1);
+    p->rng.emplace_back(seed * 0x2545F4914F6CDD1DULL + first_env + (uint64_t)i + 1);
   return p;
 }
 

@@ -147,16 +147,23 @@ class NatureCNNS2D(nn.Module):
     """The Nature DQN convnet on space-to-depth-packed frames, (B, 21, 21, 64) u8
     (networks.py:107-143): conv 2x2/s1 32, conv 4x4/s2 64, conv 3x3/s1 64, dense 512,
     relu after each, orthogonal init with gain sqrt(2). The dense layer reads the conv
-    output flattened in NHWC order, (7, 7, 64) -> 3136, as the JAX package does."""
+    output flattened in NHWC order, (7, 7, 64) -> 3136, as the JAX package does. With
+    ``packed_shape`` (21, 21, 64) it takes the frames as flat (B, 28224) rows (VecS2D's
+    ``flat``), viewed as the 3-D frames (networks.py:121-134)."""
 
     is_recurrent = False
     latent_size = 512
 
     def __init__(self, ob_shape=None, dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, packed_shape=None):
         super().__init__()
-        if ob_shape is not None and tuple(ob_shape) != (21, 21, 64):
+        frame = (21, 21, 64)
+        if packed_shape is not None and tuple(packed_shape) != frame:
+            raise ValueError(f"cnn_s2d unflattens rows to {frame}, got {tuple(packed_shape)}")
+        shapes = (frame,) if packed_shape is None else (frame, (math.prod(frame),))
+        if ob_shape is not None and tuple(ob_shape) not in shapes:
             raise ValueError(f"cnn_s2d takes (21, 21, 64) packed frames, got {tuple(ob_shape)}")
+        self.packed_shape = None if packed_shape is None else frame
         self.dtype = dtype
         gain = math.sqrt(2)
         self.c1 = _ortho(nn.Conv2d(64, 32, 2), gain, generator)
@@ -165,6 +172,8 @@ class NatureCNNS2D(nn.Module):
         self.fc1 = _ortho(nn.Linear(7 * 7 * 64, 512), gain, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:
+            x = x.view((x.shape[0],) + self.packed_shape)
         return _conv_stack(x, (self.c1, self.c2, self.c3), self.fc1, self.dtype)
 
 

@@ -224,6 +224,10 @@ def build_policy(ob_space, ac_space, network: str = "mlp", *, device,
         raise ValueError(f"estimate_q needs Discrete actions, got {ac_space!r}")
     pdtype = make_pdtype(ac_space)
 
+    if network == "cnn_s2d" and getattr(ob_space, "packed_shape", None) is not None:
+        # flat packed rows (VecS2D flat=True): the network views them as the 3-D frames
+        network_kwargs.setdefault("packed_shape", tuple(ob_space.packed_shape))
+
     def make_net():
         return get_network(network, ob_shape=encoded_shape(ob_space), generator=generator,
                            **network_kwargs)

@@ -81,6 +81,14 @@ def reference_forward(x: torch.Tensor, packed: tuple) -> torch.Tensor:
     return torch.relu(h @ wfc.to(torch.float32).t() + bfc)
 
 
+def _frames(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as (B, 21, 21, 64) frames: flat (B, 28224) packed rows are viewed as them,
+    the same bytes, so the kernel reads them without a copy."""
+    if x.dim() == 2 and x.shape[1] == H0 * W0 * C0:
+        return x.view(x.shape[0], H0, W0, C0)
+    return x
+
+
 def _check(x: torch.Tensor, packed: tuple) -> None:
     if x.dtype != torch.uint8 or x.dim() != 4 or tuple(x.shape[1:]) != (H0, W0, C0):
         raise ValueError(f"fused_cnn_forward takes u8 (B, {H0}, {W0}, {C0}), got "
@@ -98,10 +106,12 @@ def _check(x: torch.Tensor, packed: tuple) -> None:
 
 
 def fused_cnn_forward(x: torch.Tensor, packed: tuple) -> torch.Tensor:
-    """(B, 21, 21, 64) u8 frames -> (B, 512) f32 latent of NatureCNNS2D in bf16.
+    """(B, 21, 21, 64) u8 frames, or their flat (B, 28224) rows, -> (B, 512) f32 latent
+    of NatureCNNS2D in bf16.
 
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs the plain
     version."""
+    x = _frames(x)
     _check(x, packed)
     if x.device.type == "cpu":
         return reference_forward(x, packed)

@@ -9,8 +9,9 @@ training, under the model's VecNormalize statistics when it has them. The learne
 on the card unless ``--device=cpu`` is given, a free-form keyword that reaches
 ``learn``. ``--env`` takes the device envs, ``native:`` ids (the C++ engine) and
 gymnasium ids (host pools); the host pools that ``build_env`` opened are closed when
-``main`` returns. ``--save_video_interval`` and ``--gamestate`` raise
-``NotImplementedError`` naming the item of ROADMAP.md's Queue 1 that brings them.
+``main`` returns. ``--save_video_interval`` and ``--save_video_length`` record videos of
+the training env under the log dir's ``videos/`` (cv2 writes them), and ``--gamestate``
+goes to ``build_env`` for a retro game, as in the JAX package (run.py:70-74).
 
 In a ``torch.distributed`` group the log is configured for the process (process 0 writes
 the rows) and process 0 alone writes ``--save_path`` (run.py:105-112). The CLI builds no
@@ -39,18 +40,7 @@ def _default_network(env_type: str) -> str:
     return "cnn" if env_type in ("atari", "retro") else "mlp"
 
 
-def _reject_unported_env_flags(args) -> None:
-    for given, flag, item in (
-        (args.save_video_interval, "--save_video_interval", "item 8 (envs/video.py)"),
-        (args.gamestate, "--gamestate", "item 8 (the retro envs)"),
-    ):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet; it comes with {item} of "
-                                      "ROADMAP.md's Queue 1")
-
-
 def train(args, extra_args):
-    _reject_unported_env_flags(args)
     env_type = args.env_type or get_env_type(args.env)
     logger.log(f"env_type: {env_type}")
     learn = algos.get_learn_function(args.alg)
@@ -78,6 +68,11 @@ def train(args, extra_args):
             raise ValueError(f"--s2d only pairs with network=cnn/cnn_s2d, got {net!r}")
     if args.reward_scale != 1.0:
         env_kwargs["reward_scale"] = args.reward_scale
+    if args.save_video_interval:
+        env_kwargs["save_video_interval"] = args.save_video_interval
+        env_kwargs["save_video_length"] = args.save_video_length
+    if args.gamestate:
+        env_kwargs["gamestate"] = args.gamestate
 
     logger.log(f"Training {args.alg} on {args.env} with arguments \n{alg_kwargs}")
     return learn(env_id=args.env, seed=args.seed, total_timesteps=int(args.num_timesteps),

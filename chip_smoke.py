@@ -159,6 +159,28 @@ Phases, each printing its seconds:
         gathers an iteration, no NCCL call (gail is not sharded);
      g. dryrun_multichip(2) over NCCL where the machine has two cards or more; with one
         card it says why it did not run.
+  16. main path 11, the host side (``host_side_path``):
+     a. ppo2 with cnn_s2d in bf16 at ppo/defaults.py atari() on the DeepMind chain
+        (make_atari's NoopResetEnv(30) and MaxAndSkipEnv(4), then wrap_deepmind with the
+        numpy WarpFrame) over ``AleStandIn``, a numpy stand-in for the ALE (the card's
+        machine has no ale_py): 16 envs in worker processes forked after CUDA is up,
+        CallbackVecEnv, VecFrameStack(4), VecMonitor, VecS2D(4), 128 steps, 3 updates:
+        129 K1 and 24 K2 launches an update, finite losses, the rate with set-up and
+        steady over updates 2-3, peak memory, and the time of one CallbackVecEnv step of
+        the 16 envs;
+     b. ppo2 with mlp on native:CartPole-v1, 8 envs x 64 steps, 2 updates, under a
+        one-rank NCCL mesh and without it from the same seed: params and observations
+        bit for bit, param_consistency_check true;
+     c. K1 at B=16 (the rollout step) against its plain version, flat rows bit for bit
+        the frames', and K2 on (2048, 21, 21, 64) u8 obs by a 2048-row permutation, bit
+        for bit, each timed in turns against its library call (the cuDNN bf16 module,
+        index_select);
+     d. SumSegmentTree and MinSegmentTree at 2^20 leaves on the card: 4096 point sets, 64
+        range sums and minima, 4096 prefix-sum searches, against numpy in f64;
+     e. where the machine has cv2, VecVideoRecorder on CartPole-v1 on the card writes its
+        mp4s at the trigger steps; where it has tensorboard, the logger's tensorboard
+        format writes scalars that read back. A line names what the machine lacks (retro
+        for the retro chain) and did not run.
   Every sub-phase prints its seconds, env-steps/s (set-up included) and peak memory.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
@@ -327,6 +349,22 @@ def join_one_rank_group():
     require(backend == "nccl" and mesh.size == 1 and mesh.device == torch.device("cuda", 0),
             f"the mesh is {mesh} on backend {backend}, expected one NCCL rank on cuda:0")
     return mesh
+
+
+def timed_output(recording_output):
+    """The logger output class ``recording_output`` that also keeps the host clock at
+    each row it is given (a row waits for the device)."""
+
+    class TimedOutput(recording_output):
+        def __init__(self):
+            super().__init__()
+            self.times = []
+
+        def writekvs(self, kvs):
+            super().writekvs(kvs)
+            self.times.append(time.perf_counter())
+
+    return TimedOutput
 
 
 class Phase:
@@ -780,16 +818,7 @@ def mesh_learners_path(dev, card, counts, reset_counts, read_counts, recording_o
     from baselines_tpu_torch.distributed import param_consistency_check, psum
     from baselines_tpu_torch.distributed.dryrun import dryrun_multichip
 
-    class TimedOutput(recording_output):
-        """The logged rows and the host clock at each (a row waits for the device)."""
-
-        def __init__(self):
-            super().__init__()
-            self.times = []
-
-        def writekvs(self, kvs):
-            super().writekvs(kvs)
-            self.times.append(time.perf_counter())
+    TimedOutput = timed_output(recording_output)
 
     def replays(updates: int, steps_per_update: int, replay_start: int) -> int:
         rng = np.random.RandomState(0)  # acer's Poisson(4) replay counts
@@ -972,6 +1001,370 @@ def mesh_learners_path(dev, card, counts, reset_counts, read_counts, recording_o
         print(f"main path 10g [{card}]: dryrun_multichip(2) did not run: this machine has "
               f"{torch.cuda.device_count()} card and NCCL puts no two ranks on one GPU; the "
               "two-rank math is held by the CPU gloo tests", flush=True)
+
+
+class AleStandIn:
+    """A stand-in for an ALE emulator, numpy only (the card's machine has no ale_py or
+    gymnasium): 210x160x3 u8 frames that move with the frame count and the actions,
+    Breakout's action meanings, 5 lives with one lost every 97 frames, a reward schedule,
+    and ``np_random`` seeded by ``reset(seed=)`` as gymnasium's envs are. It declares the
+    port's spaces."""
+
+    def __init__(self):
+        import numpy as np
+
+        from baselines_tpu_torch.envs.spaces import Box, Discrete
+
+        self.observation_space = Box(0, 255, (210, 160, 3), np.uint8)
+        self.action_space = Discrete(4)
+        self.np_random = np.random.default_rng(0)
+        self.ale = self  # lives() below
+        self.t = self.x = 0
+        self._lives = 5
+
+    @property
+    def unwrapped(self):
+        return self
+
+    def get_action_meanings(self):
+        return ["NOOP", "FIRE", "RIGHT", "LEFT"]
+
+    def lives(self):
+        return self._lives
+
+    def _frame(self):
+        import numpy as np
+
+        f = np.zeros((210, 160, 3), np.uint8)
+        f[:, :, 0] = (np.arange(160) * 3 + self.t) % 256
+        f[:, :, 1] = ((np.arange(210) * 5)[:, None] + 7 * self.t) % 256
+        y, x = (self.t * 3) % 200, self.x % 150
+        f[y:y + 10, x:x + 10, 2] = 255
+        return f
+
+    def reset(self, seed=None, **kwargs):
+        import numpy as np
+
+        if seed is not None:
+            self.np_random = np.random.default_rng(seed)
+        self.t, self._lives = 0, 5
+        self.x = int(self.np_random.integers(0, 150))
+        return self._frame(), {}
+
+    def step(self, action):
+        self.t += 1
+        self.x += {2: 3, 3: -3}.get(int(action), 0)
+        if self.t % 97 == 0:
+            self._lives -= 1
+        reward = 1.0 if self.t % 7 == 0 else (-1.0 if self.t % 31 == 0 else 0.0)
+        return self._frame(), reward, self._lives == 0, False, {}
+
+    def render(self):
+        return self._frame()
+
+    def close(self):
+        pass
+
+
+def deepmind_stand_in():
+    """make_atari's and wrap_deepmind's chain of the port over AleStandIn."""
+    from baselines_tpu_torch.envs.atari import MaxAndSkipEnv, NoopResetEnv, wrap_deepmind
+
+    return wrap_deepmind(MaxAndSkipEnv(NoopResetEnv(AleStandIn(), noop_max=30), skip=4))
+
+
+def host_side_path(dev, card, kernels, counts, reset_counts, read_counts, recording_output):
+    """Main path 11, the host side (phase 16 of the module's docstring): ppo2 with
+    cnn_s2d in bf16 on the DeepMind chain over a stand-in emulator, a host env under a
+    one-rank NCCL mesh, K1 and K2 at this path's shapes, and the segment tree on the
+    card. Adds the path's launch counts to ``counts`` and the kernels' times at its
+    shapes to ``kernels``."""
+    import importlib.util
+
+    import numpy as np
+
+    from baselines_tpu_torch.algos.ppo.defaults import atari as ppo_atari
+    from baselines_tpu_torch.algos.ppo.ppo import learn
+    from baselines_tpu_torch.core import logger
+    from baselines_tpu_torch.core.rng import Draws
+    from baselines_tpu_torch.data.segment_tree import MinSegmentTree, SumSegmentTree
+    from baselines_tpu_torch.distributed import param_consistency_check
+    from baselines_tpu_torch.envs.atari import atari_vec_env
+    from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+    from baselines_tpu_torch.envs.vec import VecMonitor, VecS2D
+    from baselines_tpu_torch.nn.networks import NatureCNNS2D
+    from baselines_tpu_torch.ops.fused_cnn import (FC_IN, FC_OUT, fused_cnn_forward,
+                                                   pack_params, reference_forward)
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    TimedOutput = timed_output(recording_output)
+
+    # a. ppo2 with cnn_s2d in bf16 at ppo/defaults.py atari() on the DeepMind chain over
+    # the stand-in: 16 envs in worker processes forked after CUDA is up (they touch numpy
+    # only), CallbackVecEnv, VecFrameStack(4), VecMonitor, VecS2D(4); 3 updates
+    nenv, updates = 16, 3
+    hp = ppo_atari()
+    nbatch = nenv * hp["nsteps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the phases before, not this run's
+    recorder = TimedOutput()
+    logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+    start = time.perf_counter()
+    venv = VecS2D(VecMonitor(atari_vec_env(deepmind_stand_in, nenv, 4, device=dev)), 4)
+    try:
+        reset_counts()
+        model = learn(env=venv, network="cnn_s2d", dtype=torch.bfloat16, seed=0,
+                      total_timesteps=updates * nbatch, device=dev, **hp)
+        torch.cuda.synchronize()
+        counts["host_atari"] = c = read_counts()
+        elapsed = time.perf_counter() - start
+        logger.reset()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = {"fused_cnn": updates * (hp["nsteps"] + 1),
+                "take_rows": updates * 6 * hp["noptepochs"], "stratified_sample": 0}
+        require(c == want, f"ppo2 on the Atari chain launched {c}, expected {want}")
+        keys = ("loss/policy_loss", "loss/value_loss", "loss/policy_entropy", "loss/approxkl")
+        require(len(recorder.rows) == updates and all(
+            math.isfinite(float(r[k])) for r in recorder.rows for k in keys),
+            "ppo2 on the Atari chain: a logged loss is missing or not finite")
+        require(all(bool(torch.isfinite(p).all()) for p in model.policy.module.parameters()),
+                "ppo2 on the Atari chain: params not finite")
+        require(tuple(model.state.obs.shape) == (nenv, 21, 21, 64)
+                and model.state.obs.dtype == torch.uint8, "the chain's obs are not packed u8")
+        steady = 2 * nbatch / (recorder.times[2] - recorder.times[0])
+        stats = VecMonitor.get_stats(model.state.env_state)
+        # one CallbackVecEnv step of the 16 envs, from and to the card: 50 steps of random
+        # actions, 3 rounds, the median
+        bridge = venv
+        while not isinstance(bridge, CallbackVecEnv):
+            bridge = bridge.venv
+        _, st = bridge.reset(model.draws)
+        acts = torch.randint(0, 4, (50, nenv), device=dev)
+        us = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in acts:
+                _, st, _, _, _ = bridge.step(None, st, a)
+            torch.cuda.synchronize()
+            us.append((time.perf_counter() - t0) / len(acts) * 1e6)
+        # where a step's host time goes: one env's chain in this process, 50 steps, and
+        # its WarpFrame alone on the same frames (the pool runs 16 such chains in 16
+        # worker processes on the machine's cores, then the pipes)
+        one = deepmind_stand_in()
+        one.reset(seed=0)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            one.step(2)
+        chain_us = (time.perf_counter() - t0) / 50 * 1e6
+        frame, warp = one.unwrapped.render(), one.env  # ClipRewardEnv -> WarpFrame
+        t0 = time.perf_counter()
+        for _ in range(50):
+            warp._warp(frame)
+        warp_us = (time.perf_counter() - t0) / 50 * 1e6
+        losses = [round(float(r["loss/policy_loss"]), 5) for r in recorder.rows]
+        print(f"main path 11a [{card}]: ppo2 cnn_s2d bf16 at ppo/defaults.py atari() on the "
+              f"DeepMind chain (NoopReset 30, MaxAndSkip 4, EpisodicLife, FireReset, the numpy "
+              f"WarpFrame, ClipReward) over the stand-in emulator, {nenv} envs in worker "
+              f"processes x {hp['nsteps']} steps, {updates} updates, launches {c}; "
+              f"{elapsed:.2f} s with set-up = {updates * nbatch / elapsed:.0f} env-steps/s, "
+              f"steady over updates 2-3 {steady:.0f} env-steps/s; policy_loss {losses}; "
+              f"{int(stats.episodes)} episodes ended (lost lives), eprewmean "
+              f"{float(stats.mean_return):.3f}; one CallbackVecEnv step of the {nenv} envs "
+              f"{float(np.median(us)):.0f} us (rounds {[round(u) for u in us]}), of which one "
+              f"env's chain takes {chain_us:.0f} us in this process (its WarpFrame "
+              f"{warp_us:.0f} us) on {os.cpu_count()} cores; peak device memory "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        del model
+    finally:
+        logger.reset()
+        venv.close()
+
+    # b. ppo2 with mlp on native:CartPole-v1, 8 envs x 64 steps, 2 updates, without and
+    # with a one-rank NCCL mesh from the same seed (the pool's reset seed drawn from the
+    # replicated draws): the params and observations bit for bit
+    kw = dict(env_id="native:CartPole-v1", network="mlp", seed=3, num_envs=8, nsteps=64,
+              nminibatches=4, noptepochs=4, total_timesteps=2 * 8 * 64, log_interval=100)
+    mesh = join_one_rank_group()
+    try:
+        reset_counts()
+        plain = learn(pipeline=False, device=dev, **kw)
+        plain_counts = read_counts()
+        reset_counts()
+        start = time.perf_counter()
+        meshed = learn(mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        counts["host_mesh"] = c = read_counts()
+        require(c == plain_counts == {"fused_cnn": 0, "take_rows": 2 * 6 * 4,
+                                      "stratified_sample": 0},
+                f"ppo2 on the native pool launched {c} under the mesh, {plain_counts} without")
+        same = all(torch.equal(a, b) for a, b in zip(plain.policy.module.parameters(),
+                                                     meshed.policy.module.parameters()))
+        require(same and torch.equal(plain.state.obs, meshed.state.obs),
+                "ppo2 on the native pool: the mesh run differs from the run without it")
+        require(param_consistency_check(list(meshed.policy.module.parameters()), mesh,
+                                        atol=0.0), "param_consistency_check failed")
+        print(f"main path 11b [{card}]: ppo2 mlp on native:CartPole-v1, 8 envs x 64 steps, 2 "
+              f"updates, under a one-rank NCCL mesh and without it from the same seed: params "
+              f"and observations bit for bit, param_consistency_check true, launches {c}; "
+              f"{elapsed:.2f} s under the mesh with set-up", flush=True)
+        del plain, meshed
+    finally:
+        torch.distributed.destroy_process_group()
+    if torch.cuda.device_count() >= 2:
+        print(f"main path 11b [{card}]: two NCCL ranks ran ppo2 on native:CartPole-v1 in "
+              "phase 15g's dry run (params equal on both ranks); the two ranks against one "
+              "process are held by tests/test_torch_mesh_host.py on gloo", flush=True)
+    else:
+        print(f"main path 11b [{card}]: two NCCL ranks did not run: this machine has "
+              f"{torch.cuda.device_count()} card and NCCL puts no two ranks on one GPU; "
+              "tests/test_torch_mesh_host.py holds two gloo ranks against one process and "
+              "against the JAX package's two-device run", flush=True)
+
+    # c. K1 at the rollout step's batch of 16 and K2 on the epoch shuffle's obs rows,
+    # (2048, 21, 21, 64) u8 by a 2048-row permutation, against their plain versions and
+    # timed in turns against the library calls
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randint(0, 256, (nenv, 21, 21, 64), dtype=torch.uint8, device=dev, generator=gen)
+    net = NatureCNNS2D(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(16)).to(dev)
+    packed = pack_params(net)
+    with torch.no_grad():
+        got, want = fused_cnn_forward(x, packed), reference_forward(x, packed)
+        rows = x.reshape(nenv, -1)
+        require(torch.equal(fused_cnn_forward(rows, packed), got),
+                "fused_cnn on flat rows differs from the 3-D frames")
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / max(float(want.abs().max()), 1e-9)
+        require(rel_err < K1_REL_TOL, f"fused_cnn at B={nenv}: rel err {rel_err:.3g}")
+        t, readings = turns_ms({"kernel": lambda: fused_cnn_forward(x, packed),
+                                "plain": lambda: reference_forward(x, packed),
+                                "library": lambda: net(x)}, 50, rounds=3)
+    flops = nenv * 2 * (400 * 32 * 256 + 81 * 64 * 512 + 49 * 64 * 576 + FC_IN * FC_OUT)
+    nbytes = x.numel() + sum(p.numel() * p.element_size() for p in packed) + nenv * FC_OUT * 4
+    bms, by = bound_ms(flops, nbytes)
+    kernels["fused_cnn"]["path11_shapes"] = [dict(
+        shape=f"B={nenv}", max_abs_err=abs_err, ms=t["kernel"], plain_ms=t["plain"],
+        bound_ms=bms, bound_by=by, library_ms=t["library"])]
+    print(f"fused_cnn B={nenv} (the Atari chain's rollout step): max abs err {abs_err:.3g}, "
+          f"rel err {rel_err:.3g} (tol {K1_REL_TOL}), flat rows bit for bit the frames'; "
+          f"device times: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, cuDNN bf16 "
+          f"module {t['library']:.4f} ms, bound {bms:.4f} ms ({by}); in turns: "
+          f"{lead(readings, 'kernel', 'library')} [{card}]", flush=True)
+    del x, net, packed, got, want, rows
+    n = nbatch
+    obs = torch.randint(0, 256, (n, 21, 21, 64), dtype=torch.uint8, device=dev, generator=gen)
+    idx = torch.randperm(n, device=dev, generator=gen)
+    require(torch.equal(take_rows(obs, idx), obs[idx]), "take_rows on the Atari chain's obs "
+            "rows differs from x[idx]")
+    t, readings = turns_ms({"kernel": lambda: take_rows(obs, idx), "plain": lambda: obs[idx],
+                            "index_select": lambda: obs.index_select(0, idx)}, 20, rounds=3)
+    bms, by = bound_ms(0, 2 * obs.numel() + idx.numel() * 8)
+    shape = f"the Atari chain's obs: u8 ({n}, 21, 21, 64) by ({n},) int64"
+    kernels["take_rows"]["path11_shapes"] = [dict(
+        shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+        bound_by=by, library_ms=t["index_select"])]
+    print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, plain "
+          f"x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), {bms / t['kernel']:.1%} of it; in turns: "
+          f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+    del obs, idx
+
+    # d. the segment trees at 2^20 leaves on the card: 4096 point sets, 64 range sums and
+    # minima, 4096 prefix-sum searches, against numpy in f64 on the same values
+    cap = 1 << 20
+    rng = np.random.RandomState(11)
+    sum_tree, min_tree = SumSegmentTree(cap), MinSegmentTree(cap)
+    set_idx = rng.choice(cap, 4096, replace=False)
+    vals = rng.uniform(0.5, 2.0, 4096).astype(np.float32)
+    tidx, tvals = torch.from_numpy(set_idx).to(dev), torch.from_numpy(vals).to(dev)
+    s_sum, s_min = sum_tree.init(dev), min_tree.init(dev)
+    set_ms = time_ms(lambda: sum_tree.set(s_sum, tidx, tvals), 5)
+    s_sum, s_min = sum_tree.set(s_sum, tidx, tvals), min_tree.set(s_min, tidx, tvals)
+    leaves = np.zeros(cap, np.float64)
+    leaves[set_idx] = vals
+    mins = np.full(cap, np.inf)
+    mins[set_idx] = vals
+    total = float(s_sum.tree[1])
+    require(abs(total - leaves.sum()) <= 1e-5 * leaves.sum(), f"the sum tree's root {total}, "
+            f"numpy's {leaves.sum()}")
+    ranges = [(int(a), int(a) + int(rng.randint(1, cap // 4)))
+              for a in rng.randint(0, 3 * cap // 4, 64)]
+    worst = 0.0
+    for a, b in ranges:
+        got_sum, want_sum = float(sum_tree.reduce(s_sum, a, b)), leaves[a:b].sum()
+        worst = max(worst, abs(got_sum - want_sum) / max(want_sum, 1e-12))
+        require(float(min_tree.reduce(s_min, a, b)) == mins[a:b].min(),
+                f"the min tree over [{a}, {b}) differs from numpy's")
+    require(worst <= 1e-5, f"a range sum differs from numpy's by {worst:.3g} relative")
+    reduce_ms = time_ms(lambda: [sum_tree.reduce(s_sum, a, b) for a, b in ranges], 3) / 64
+    q = torch.from_numpy(rng.uniform(0, total, 4096).astype(np.float32)).to(dev)
+    found = sum_tree.find_prefixsum_idx(s_sum, q).cpu().numpy()
+    find_ms = time_ms(lambda: sum_tree.find_prefixsum_idx(s_sum, q), 10)
+    cum = np.concatenate([[0.0], np.cumsum(leaves)])
+    qn, tol = q.cpu().numpy().astype(np.float64), 1e-5 * total
+    require(bool(np.all((cum[found] <= qn + tol) & (qn < cum[found + 1] + tol))
+                 & np.all(leaves[found] > 0)),
+            "a prefix-sum search landed outside its leaf (numpy's f64 prefix sums)")
+    exact = float(np.mean(found == np.searchsorted(cum, qn, side="right") - 1))
+    print(f"main path 11d [{card}]: segment trees at 2^20 leaves on the card: 4096 point "
+          f"sets {set_ms:.3f} ms (20 level rebuilds), the root {total:.6f} against numpy's "
+          f"f64 {leaves.sum():.6f}, 64 range sums within {worst:.3g} relative and minima "
+          f"exact, {reduce_ms:.4f} ms a range; 4096 prefix-sum searches {find_ms:.3f} ms, "
+          f"each in its leaf, {exact:.2%} the leaf of numpy's f64 search", flush=True)
+
+    # e. video capture and the logger's tensorboard format, where the machine has cv2 and
+    # tensorboard; the retro chain needs retro, which no such machine has had
+    from baselines_tpu_torch.algos.common import build_env
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "tensorboard", "retro")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice11_")
+    try:
+        if have["cv2"]:
+            # CartPole-v1 on the card, 4 envs, a video of 8 frames every 16 steps, 40 steps
+            video_dir = os.path.join(tmp, "videos")
+            venv = build_env("CartPole-v1", 4, device=dev, save_video_interval=16,
+                             save_video_length=8, video_dir=video_dir)
+            draws = Draws(0, dev)
+            _, st = venv.reset(draws)
+            start = time.perf_counter()
+            for a in torch.randint(0, 2, (40, 4), device=dev):
+                _, st, _, _, _ = venv.step(draws, st, a)
+            elapsed = time.perf_counter() - start
+            venv.close()
+            names = sorted(os.listdir(video_dir))
+            want_names = [f"video.{t:09d}.mp4" for t in (0, 16, 32)]
+            require(names == want_names and all(
+                os.path.getsize(os.path.join(video_dir, f)) > 0 for f in names),
+                f"the video recorder wrote {names}, expected {want_names}")
+            print(f"main path 11e [{card}]: VecVideoRecorder on CartPole-v1 on the card (4 envs "
+                  f"tiled, render_frame of each, cv2's mp4 writer): {names} in 40 steps, "
+                  f"{elapsed / 40 * 1e3:.2f} ms a step with its frames", flush=True)
+        if have["tensorboard"]:
+            from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+            fmt = logger.make_output_format("tensorboard", tmp)
+            for step in range(3):
+                fmt.writekvs({"loss": 0.5 / (step + 1), "fps": 100 * step, "name": "text"})
+            fmt.close()
+            acc = EventAccumulator(os.path.join(tmp, "tb"))
+            acc.Reload()
+            got = {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+                   for tag in acc.Tags()["scalars"]}
+            want_tb = {"loss": [(i + 1, float(np.float32(0.5 / (i + 1)))) for i in range(3)],
+                       "fps": [(i + 1, 100.0 * i) for i in range(3)]}
+            require(got == want_tb, f"the tensorboard scalars read back {got}")
+            print(f"main path 11e [{card}]: the logger's tensorboard format wrote 3 rows, read "
+                  f"back as the scalars {sorted(got)} at steps 1-3", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    not_run = ["video capture (needs cv2)"] * (not have["cv2"]) + [
+        "the logger's tensorboard format (needs tensorboard)"] * (not have["tensorboard"]) + [
+        "the retro chain (needs retro)"] * (not have["retro"])
+    if not_run:
+        print(f"main path 11 [{card}]: not run on this machine: {', '.join(not_run)}; the CPU "
+              "tests hold them against the JAX package", flush=True)
 
 
 def main() -> int:
@@ -2645,13 +3038,16 @@ def main() -> int:
     with Phase("main path 10: the remaining learners under a one-rank NCCL mesh"):
         mesh_learners_path(dev, card, counts, reset_counts, read_counts, RecordingOutput)
 
+    with Phase("main path 11: the host side (the Atari chain, a host env under a mesh)"):
+        host_side_path(dev, card, kernels, counts, reset_counts, read_counts, RecordingOutput)
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape",
-             "path7_shapes", "path8_shapes", "path9_shapes")
+             "path7_shapes", "path8_shapes", "path9_shapes", "path11_shapes")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

@@ -224,7 +224,9 @@ def test_run_save_load_play_round_trip(tmp_path, capsys, alg, extra):
 def test_run_defaults_network_and_flags(tmp_path):
     """The env type picks the defaults and the network (mlp for classic control); an
     explicit ``--network`` beats them; ``--s2d`` turns ``cnn`` into ``cnn_s2d`` and
-    refuses other networks; the env flags of later items raise."""
+    refuses other networks; the env flags reach build_env: --gamestate, which only a
+    retro chain reads, leaves a classic id as it is, and --save_video_interval with
+    --save_video_length records videos under the log dir."""
     base = ["--env=CartPole-v1", "--num_timesteps=0", "--device=cpu",
             f"--log_path={tmp_path}"]
     model = run.main(["--alg=ppo2"] + base)
@@ -236,10 +238,10 @@ def test_run_defaults_network_and_flags(tmp_path):
     assert type(model.policy.module.network).__name__ == "NatureCNNS2D"
     with pytest.raises(ValueError, match="--s2d"):
         run.main(["--alg=ppo2", "--env=AtariSim-v0", "--s2d=4"] + base[1:])
-    for flag, item in (("--save_video_interval=5", "item 8"), ("--save_video_interval=10", "item 8"),
-                       ("--gamestate=Level1", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            run.main(["--alg=ppo2", flag] + base)
+    model = run.main(["--alg=ppo2", "--gamestate=Level1"] + base)
+    assert type(model.policy.module.network).__name__ == "MLP"
+    run.main(["--alg=ppo2", "--save_video_interval=5", "--save_video_length=2"] + base)
+    assert (tmp_path / "videos").is_dir()
 
 
 def test_run_without_device_needs_a_card(tmp_path):

@@ -690,3 +690,117 @@ def test_one_rank_nccl_mesh_run_equals_the_run_without(dev, nccl_mesh, alg, tmp_
     if d != 0.0:
         assert d <= diff(run(None)[1], plain), (alg, d)
     assert all(bool(torch.isfinite(v).all()) for v in meshed.values())
+
+
+class _AleStandIn:
+    """A numpy stand-in for an ALE emulator at the ALE's frame size (210x160x3 u8) with
+    Breakout's action meanings and lives, declaring the port's spaces (the card's
+    machine has no gymnasium or ale_py)."""
+
+    def __init__(self):
+        import numpy as np
+
+        from baselines_tpu_torch.envs.spaces import Box, Discrete
+
+        self.observation_space = Box(0, 255, (210, 160, 3), np.uint8)
+        self.action_space = Discrete(4)
+        self.np_random = np.random.default_rng(0)
+        self.ale, self.t, self._lives = self, 0, 5
+
+    @property
+    def unwrapped(self):
+        return self
+
+    def get_action_meanings(self):
+        return ["NOOP", "FIRE", "RIGHT", "LEFT"]
+
+    def lives(self):
+        return self._lives
+
+    def _frame(self):
+        import numpy as np
+
+        y, x = np.mgrid[:210, :160]
+        return np.stack([(x * 3 + self.t) % 256, (y * 5 + 7 * self.t) % 256,
+                         (x * y + self.t) % 256], -1).astype(np.uint8)
+
+    def reset(self, seed=None, **kwargs):
+        import numpy as np
+
+        if seed is not None:
+            self.np_random = np.random.default_rng(seed)
+        self.t, self._lives = int(self.np_random.integers(0, 50)), 5
+        return self._frame(), {}
+
+    def step(self, action):
+        self.t += 1 + int(action)
+        self._lives -= int(self.t % 97 == 0)
+        return self._frame(), float(self.t % 7 == 0), self._lives == 0, False, {}
+
+    def close(self):
+        pass
+
+
+def _deepmind_stand_in():
+    from baselines_tpu_torch.envs.atari import MaxAndSkipEnv, NoopResetEnv, wrap_deepmind
+
+    return wrap_deepmind(MaxAndSkipEnv(NoopResetEnv(_AleStandIn(), noop_max=30), skip=4))
+
+
+def test_atari_chain_in_a_forked_pool_on_the_card(dev):
+    """The DeepMind chain with the numpy WarpFrame in 4 worker processes forked after
+    CUDA is up, behind CallbackVecEnv on the card and VecFrameStack: the same frames,
+    rewards and dones as the same chain in this process (HostDummyVecEnv) on the CPU,
+    over 40 steps of the same actions."""
+    import numpy as np
+
+    from baselines_tpu_torch.envs.atari import atari_vec_env
+    from baselines_tpu_torch.envs.callback_env import CallbackVecEnv
+    from baselines_tpu_torch.envs.gym_bridge import HostDummyVecEnv
+    from baselines_tpu_torch.envs.vec import VecFrameStack
+
+    torch.zeros(1, device=dev)  # CUDA is up before the fork
+    card = atari_vec_env(_deepmind_stand_in, 4, 4, device=dev)
+    cpu = VecFrameStack(CallbackVecEnv(HostDummyVecEnv([_deepmind_stand_in] * 4),
+                                       device="cpu"), 4)
+    try:
+        obs_c, st_c = card.reset(_HostDraws(0, dev))
+        obs_h, st_h = cpu.reset(_HostDraws(0, "cpu"))
+        assert obs_c.device.type == dev.type and obs_c.dtype == torch.uint8
+        assert obs_c.shape == (4, 84, 84, 4)
+        assert torch.equal(obs_c.cpu(), obs_h)
+        for a in np.random.RandomState(0).randint(0, 4, (40, 4)):
+            obs_c, st_c, rew_c, done_c, _ = card.step(None, st_c, torch.from_numpy(a).to(dev))
+            obs_h, st_h, rew_h, done_h, _ = cpu.step(None, st_h, torch.from_numpy(a))
+            assert torch.equal(obs_c.cpu(), obs_h) and torch.equal(rew_c.cpu(), rew_h)
+            assert torch.equal(done_c.cpu(), done_h)
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_segment_tree_on_the_card_matches_the_cpu(dev):
+    """Sum and min trees of 2^16 leaves on the card against the same trees on the CPU:
+    the trees after two batches of point sets, the range minima and the prefix-sum
+    searches bit for bit, the range sums to 1e-6 relative."""
+    import numpy as np
+
+    from baselines_tpu_torch.data.segment_tree import MinSegmentTree, SumSegmentTree
+
+    cap = 1 << 16
+    rng = np.random.RandomState(0)
+    for tree in (SumSegmentTree(cap), MinSegmentTree(cap)):
+        s_dev, s_cpu = tree.init(dev), tree.init("cpu")
+        for _ in range(2):
+            idx = torch.from_numpy(rng.choice(cap, 1024, replace=False))
+            vals = torch.from_numpy(rng.uniform(0, 4, 1024).astype(np.float32))
+            s_dev, s_cpu = tree.set(s_dev, idx.to(dev), vals.to(dev)), tree.set(s_cpu, idx, vals)
+        assert s_dev.tree.device.type == dev.type and torch.equal(s_dev.tree.cpu(), s_cpu.tree)
+        for a in rng.randint(0, cap // 2, 8):
+            got, want = float(tree.reduce(s_dev, int(a), int(a) + 5000)), float(
+                tree.reduce(s_cpu, int(a), int(a) + 5000))
+            assert got == want if tree.operation == "min" else abs(got - want) <= 1e-6 * abs(want)
+        if tree.operation == "sum":
+            q = torch.from_numpy(rng.uniform(0, float(s_cpu.tree[1]), 512).astype(np.float32))
+            assert torch.equal(tree.find_prefixsum_idx(s_dev, q.to(dev)).cpu(),
+                               tree.find_prefixsum_idx(s_cpu, q))

@@ -1,8 +1,9 @@
 """The port, chip_smoke.py and sampler_grid.py stand without JAX: in a process where
 jax, flax, optax and baselines_tpu cannot be imported, and neither can gymnasium,
-gymnasium_robotics, mujoco and cloudpickle (which the machine with the card lacks), every
-module of baselines_tpu_torch imports, and chip_smoke.py and sampler_grid.py, finding no
-card, exit nonzero with their "no CUDA device" message rather than an ImportError."""
+gymnasium_robotics, mujoco, cloudpickle, cv2, ale_py, retro and tensorboard (which the
+machine with the card lacks), every module of baselines_tpu_torch imports, and
+chip_smoke.py and sampler_grid.py, finding no card, exit nonzero with their "no CUDA
+device" message rather than an ImportError."""
 
 import os
 import subprocess
@@ -14,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("import sys\nfor m in ('jax', 'flax', 'optax', 'baselines_tpu', 'gymnasium', "
-           "'gymnasium_robotics', 'mujoco', 'cloudpickle'):\n    sys.modules[m] = None\n")
+           "'gymnasium_robotics', 'mujoco', 'cloudpickle', 'cv2', 'ale_py', 'retro', "
+           "'tensorboard'):\n    sys.modules[m] = None\n")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -43,7 +45,9 @@ def test_every_port_module_imports_without_jax():
                  "algos.gail.dataset", "algos.acktr.acktr", "algos.acktr.kfac",
                  "algos.acer.acer", "data.frame_chunk", "native", "envs.gym_bridge",
                  "envs.callback_env", "envs.host_pipeline", "core.profiler",
-                 "core.tile_images"):
+                 "core.tile_images", "envs.atari", "envs.retro_wrappers", "envs.video",
+                 "data.segment_tree", "core.console_util", "core.dataset",
+                 "core.misc_util"):
         assert f"baselines_tpu_torch.{name}" in imported, name
 
 

@@ -216,11 +216,12 @@ LEARNERS = ["ppo2", "ppo1", "deepq", "a2c", "trpo", "acktr", "acer", "ddpg", "he
 
 
 def test_dryrun_multichip_on_two_gloo_ranks():
-    """Every learner takes one update (a ddpg or her cycle) on two gloo ranks, with
-    finite params equal on both ranks (the port's __graft_entry__.dryrun_multichip)."""
+    """Every learner takes one update (a ddpg or her cycle) on two gloo ranks, and ppo2
+    one on the native engine's host pool, with finite params equal on both ranks (the
+    port's __graft_entry__.dryrun_multichip)."""
     outs = dryrun_multichip(2, device="cpu")
     for rank, out in enumerate(outs):
-        for alg in LEARNERS:
+        for alg in LEARNERS + ["ppo2 native"]:
             assert f"rank {rank}/2 on cpu: {alg} ok" in out
 
 

@@ -347,11 +347,14 @@ def test_learn_on_two_ranks_logs_the_one_process_episodes(runs, name):
 
 
 def test_her_refuses_a_host_goal_env_under_a_mesh():
-    """A host goal env's pool draws one reset seed, which has no env axis to shard: her
-    under a mesh raises naming item 8 before it opens a pool."""
+    """her no longer refuses a host goal env under a mesh: the pools' one reset seed is
+    drawn from the replicated draws, and rank r's pools hold its envs, seeded by their
+    global index (tests/test_torch_mesh_host.py runs it on two ranks). Here rank 1 of a
+    mesh of 2 builds its pools of one env each, env 1 of the whole batch, and resets
+    them without a collective."""
     from baselines_tpu_torch.distributed import Mesh
 
-    mesh = Mesh(group=None, rank=0, size=1, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_learn_function("her")(env_id="FetchReach-v4", total_timesteps=0, device="cpu",
-                                  mesh=mesh)
+    mesh = Mesh(group=None, rank=1, size=2, device=torch.device("cpu"))
+    model = get_learn_function("her")(env_id="FetchReach-v4", num_envs=2, total_timesteps=0,
+                                      device="cpu", mesh=mesh, seed=0)
+    assert model.state.obs["observation"].shape == (1, 10) and model.state.env_state == 0

@@ -149,12 +149,21 @@ def test_native_autoreset_timelimit_and_reseed():
 
 def test_native_library_is_built_under_the_port():
     """The engine's library lies in baselines_tpu_torch/_build/, keyed by the source's
-    hash, and its source is the JAX package's, unchanged."""
+    hash, and its source is the JAX package's but for the global index of the pool's
+    first env that ``btenv_create`` takes (its comment, its parameter and its use in the
+    seeding)."""
     path = native.build()
     assert path.parent == ROOT / "baselines_tpu_torch" / "_build"
     assert path.name.startswith("envpool_") and path.exists()
-    assert native.SOURCE.read_bytes() == (ROOT / "baselines_tpu" / "native" / "csrc" /
-                                          "envpool.cpp").read_bytes()
+    ours = native.SOURCE.read_text()
+    for added in ("first_env + ", ", uint64_t first_env", ", first_env"):
+        assert added in ours
+        ours = ours.replace(added, "")
+    lines = ours.splitlines(keepends=True)
+    start = next(i for i, line in enumerate(lines) if "btenv_create(name" in line)
+    del lines[start + 1:start + 4]  # the comment on the first env's index
+    jax_source = (ROOT / "baselines_tpu" / "native" / "csrc" / "envpool.cpp").read_text()
+    assert "".join(lines) == jax_source
 
 
 def test_native_id_raises_when_the_build_fails(tmp_path, monkeypatch):

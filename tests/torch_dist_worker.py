@@ -16,6 +16,7 @@ the port's ``Draws`` that serves recorded numbers, lives here for the same reaso
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import subprocess
 import sys
@@ -288,7 +289,7 @@ def task_ppo_update(mesh, spec, workdir):
 def task_learners(mesh, spec, workdir):
     """Each learner of ``spec["runs"]`` under the mesh: its final params (and whether
     ``param_consistency_check`` holds them equal on every rank), the logged rows and,
-    where the learner has one, the monitor's ring."""
+    where the learner has one, the monitor's ring, or her's episode buffer."""
     from baselines_tpu_torch.algos import get_learn_function
     from baselines_tpu_torch.distributed import param_consistency_check
     from baselines_tpu_torch.envs.vec import VecMonitor
@@ -301,10 +302,13 @@ def task_learners(mesh, spec, workdir):
             params=model.policy.module.state_dict(), rows=recorder.rows,
             consistent=param_consistency_check(list(model.policy.module.parameters()), mesh,
                                                atol=0.0))
-        if getattr(model.state, "env_state", None) is not None:
-            stats = VecMonitor.get_stats(model.state.env_state)
+        env_state = getattr(model.state, "env_state", None)
+        if dataclasses.is_dataclass(env_state):  # a monitored chain (not a host pool's count)
+            stats = VecMonitor.get_stats(env_state)
             results[name].update(ret_buffer=stats.ret_buffer, len_buffer=stats.len_buffer,
                                  episodes=int(stats.episodes))
+        if alg == "her":
+            results[name]["buffer"] = model.state.buffer
         logger.reset()
     return results
 
@@ -467,8 +471,6 @@ def ddpg_cycle(spec: dict, draws, mesh=None):
     the learner with ``spec["kwargs"]`` (nothing trained), the env resets, the cycle
     runs. Returns (model, the reset's observations, the state after the cycle, the last
     train step's losses)."""
-    import dataclasses
-
     from baselines_tpu_torch.algos.common import build_env
     from baselines_tpu_torch.algos.ddpg import ddpg
     from baselines_tpu_torch.distributed.mesh import local_num_envs
