@@ -1,7 +1,9 @@
 """Networks (counterpart of baselines_tpu/nn/networks.py): the JAX package's eleven
 names, ``mlp``, the Nature CNN ``cnn`` and its space-to-depth form ``cnn_s2d``,
 ``cnn_small``, ``impala_cnn``, ``conv_only``, and the recurrent ``lstm``, ``lnlstm``,
-``cnn_lstm``, ``cnn_lnlstm`` and ``impala_cnn_lstm``.
+``cnn_lstm``, ``cnn_lnlstm`` and ``impala_cnn_lstm``, in a ``Registry`` to which
+``register(name)`` adds a user's network; ``get_network`` also takes a network class or
+factory, or a ready-made module, as the JAX package's does.
 
 Mixed precision as in the JAX package: parameters are f32, the layers compute in
 ``dtype``, u8 images are divided by 255 inside the network, and the latent comes back
@@ -29,6 +31,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from baselines_tpu_torch.core.registry import Registry
+
+_NETWORKS: Registry = Registry("network")
+
+
+def register(name: str):
+    """Register a network under ``name`` (networks.py:34-35), as a decorator of its class
+    or factory: ``@networks.register("my_net")``. ``get_network`` calls it with
+    ``ob_shape``, the shape of one encoded observation (a torch layer needs its input
+    width when it is built, where flax infers it at the first call), ``generator``, the
+    ``torch.Generator`` to initialise from (None: torch's global one), and the network
+    keywords the caller gave. What it returns is an ``nn.Module`` with ``latent_size``,
+    the width of the f32 (B, latent_size) latent that ``forward(x)`` returns, and
+    ``is_recurrent``; a recurrent network keeps ``RecurrentNetwork``'s interface
+    (``nlstm``, ``initial_state``, ``forward(x, carry, mask)``, ``unroll``). A second
+    registration of the same name raises ``ValueError``."""
+    return _NETWORKS.register(name)
+
 
 def _to_float(x: torch.Tensor) -> torch.Tensor:
     """u8 images -> f32 / 255 (models.py:19)."""
@@ -43,6 +63,7 @@ def _ortho(layer: nn.Module, gain: float, generator: torch.Generator | None) -> 
     return layer
 
 
+@register("mlp")
 class MLP(nn.Module):
     """A stack of dense layers (networks.py:61-87): ``num_layers`` of ``num_hidden``,
     orthogonal init with gain sqrt(2), optional LayerNorm (flax's eps of 1e-6, its
@@ -117,6 +138,7 @@ def _conv_stack(x: torch.Tensor, convs, dense, dt: torch.dtype) -> torch.Tensor:
     return F.relu(F.linear(h, dense.weight.to(dt), dense.bias.to(dt))).to(torch.float32)
 
 
+@register("cnn")
 class NatureCNN(nn.Module):
     """The Nature DQN convnet on unpacked frames, (B, 84, 84, 4) u8 (networks.py:89-106):
     conv 8x8/s4 32, conv 4x4/s2 64, conv 3x3/s1 64, dense 512, relu after each,
@@ -143,6 +165,7 @@ class NatureCNN(nn.Module):
         return _conv_stack(x, (self.c1, self.c2, self.c3), self.fc1, self.dtype)
 
 
+@register("cnn_s2d")
 class NatureCNNS2D(nn.Module):
     """The Nature DQN convnet on space-to-depth-packed frames, (B, 21, 21, 64) u8
     (networks.py:107-143): conv 2x2/s1 32, conv 4x4/s2 64, conv 3x3/s1 64, dense 512,
@@ -177,6 +200,7 @@ class NatureCNNS2D(nn.Module):
         return _conv_stack(x, (self.c1, self.c2, self.c3), self.fc1, self.dtype)
 
 
+@register("cnn_small")
 class CNNSmall(nn.Module):
     """The small convnet (networks.py:146-160, models.py:118-129): conv 8x8/s4 8, conv
     4x4/s2 16, dense 128, relu after each, orthogonal init with gain sqrt(2), the conv
@@ -233,6 +257,7 @@ class _ImpalaResBlock(nn.Module):
         return _conv(F.relu(h), self.Conv_1, dt) + x
 
 
+@register("impala_cnn")
 class ImpalaCNN(nn.Module):
     """The IMPALA residual convnet (networks.py:176-195, models.py:28-71): for each of
     ``depths``, conv 3x3 SAME, max-pool 3x3/s2 SAME and two residual blocks; then relu,
@@ -267,6 +292,7 @@ class ImpalaCNN(nn.Module):
                                self.Dense_0.bias.to(dt))).to(torch.float32)
 
 
+@register("conv_only")
 class ConvOnly(nn.Module):
     """The conv stack without a dense layer (networks.py:198-216, models.py:221-249):
     VALID convs of ``convs`` (filters, kernel, stride), relu after each, flax's default
@@ -377,17 +403,20 @@ class RecurrentNetwork(nn.Module):
         return torch.cat(latents), carry
 
 
+@register("lstm")
 def lstm(ob_shape=None, nlstm: int = 128, layer_norm: bool = False,
          generator: torch.Generator | None = None) -> RecurrentNetwork:
     """The flattened observation straight into the LSTM (models.py:131-183)."""
     return RecurrentNetwork(None, ob_shape, nlstm, layer_norm, generator)
 
 
+@register("lnlstm")
 def lnlstm(ob_shape=None, nlstm: int = 128,
            generator: torch.Generator | None = None) -> RecurrentNetwork:
     return RecurrentNetwork(None, ob_shape, nlstm, True, generator)
 
 
+@register("cnn_lstm")
 def cnn_lstm(ob_shape=(84, 84, 4), nlstm: int = 128, layer_norm: bool = False,
              generator: torch.Generator | None = None, **conv_kwargs) -> RecurrentNetwork:
     """The Nature CNN, in ``conv_kwargs``' dtype, into the f32 LSTM (models.py:186-210)."""
@@ -395,33 +424,35 @@ def cnn_lstm(ob_shape=(84, 84, 4), nlstm: int = 128, layer_norm: bool = False,
     return RecurrentNetwork(encoder, ob_shape, nlstm, layer_norm, generator)
 
 
+@register("cnn_lnlstm")
 def cnn_lnlstm(ob_shape=(84, 84, 4), nlstm: int = 128,
                generator: torch.Generator | None = None, **conv_kwargs) -> RecurrentNetwork:
     return cnn_lstm(ob_shape, nlstm, True, generator, **conv_kwargs)
 
 
+@register("impala_cnn_lstm")
 def impala_cnn_lstm(ob_shape=(84, 84, 4), nlstm: int = 256,
                     generator: torch.Generator | None = None, **kwargs) -> RecurrentNetwork:
     encoder = ImpalaCNN(ob_shape, generator=generator, **kwargs)
     return RecurrentNetwork(encoder, ob_shape, nlstm, False, generator)
 
 
-_NETWORKS = {"mlp": MLP, "cnn": NatureCNN, "cnn_s2d": NatureCNNS2D, "cnn_small": CNNSmall,
-             "impala_cnn": ImpalaCNN, "conv_only": ConvOnly, "lstm": lstm, "lnlstm": lnlstm,
-             "cnn_lstm": cnn_lstm, "cnn_lnlstm": cnn_lnlstm,
-             "impala_cnn_lstm": impala_cnn_lstm}
-
-
 def network_names() -> list[str]:
-    return sorted(_NETWORKS)
+    return _NETWORKS.names()
 
 
-def get_network(name: str, **kwargs) -> nn.Module:
-    """Build a network by name with the JAX package's keywords (``num_layers``,
-    ``num_hidden``, ``activation``, ``layer_norm``, ``depths``, ``convs``, ``nlstm``,
-    ``dtype``, which may be a string such as ``"bfloat16"``) and ``ob_shape``."""
+def get_network(name, **kwargs) -> nn.Module:
+    """Build a network (models.get_network_builder, networks.py:38-46): by a registered
+    name, or by a callable (a network class or factory), either called with the keywords
+    the port passes (``ob_shape``, ``generator``) and the JAX package's network keywords
+    (``num_layers``, ``num_hidden``, ``activation``, ``layer_norm``, ``depths``,
+    ``convs``, ``nlstm``, ``dtype``, which may be a string such as ``"bfloat16"``); a
+    ready-made ``nn.Module`` is returned as it is. An unknown name raises
+    ``ValueError``, as the JAX package's registry does."""
     if isinstance(kwargs.get("dtype"), str):
         kwargs["dtype"] = getattr(torch, kwargs["dtype"])
-    if name not in _NETWORKS:
-        raise KeyError(f"unknown network {name!r}; the port has {network_names()}")
-    return _NETWORKS[name](**kwargs)
+    if isinstance(name, nn.Module):
+        return name
+    if callable(name):
+        return name(**kwargs)
+    return _NETWORKS.get(name)(**kwargs)

@@ -181,6 +181,24 @@ Phases, each printing its seconds:
         mp4s at the trigger steps; where it has tensorboard, the logger's tensorboard
         format writes scalars that read back. A line names what the machine lacks (retro
         for the retro chain) and did not run.
+  17. main path 12, the examples and the results tools (``examples_path``):
+     a. train_cartpole's configuration (``examples/train_cartpole.LEARN_KWARGS``: deepq,
+        mlp with 64 hidden, 4 envs, a 50000-row ring) through the port's learn on the
+        card, at the depth ``TRAIN_CARTPOLE_STEPS`` (printed with its cut): 5 gathers a
+        training iteration, finite logged rewards and params, the rate with set-up and
+        steady after the first chunk, peak memory, the final mean episode return; saved;
+     b. enjoy_cartpole on that file: learn with total_timesteps=0 and load_path, 1000
+        deterministic evaluation steps of 4 envs, the trained model's report bit for bit,
+        and its 300-frame mp4 (cv2 on the card's machine; without it the phase fails);
+     c. custom_network's configuration (ppo2 on the registered my_tiny_net, width 64, 8
+        envs x 128 steps) at ``CUSTOM_NETWORK_STEPS``: 24 gathers an update, finite
+        losses, the rates; a second my_tiny_net registration raises ValueError;
+     d. the gather on 32 rows of the (50000, 4) f32 ring and on (1024, 4) f32 obs by a
+        1024-row permutation, bit for bit, timed in turns against index_select;
+     e. one monitor.csv a run by bench.monitor_io.ResultsWriter from the episodes (a) and
+        (c) logged, read back by both loaders where the machine has pandas, and drawn by
+        plot_util.plot_results and results_plotter.plot_results to PNG where it has
+        matplotlib too (a line says what did not run and why).
   Every sub-phase prints its seconds, env-steps/s (set-up included) and peak memory.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
@@ -1365,6 +1383,280 @@ def host_side_path(dev, card, kernels, counts, reset_counts, read_counts, record
     if not_run:
         print(f"main path 11 [{card}]: not run on this machine: {', '.join(not_run)}; the CPU "
               "tests hold them against the JAX package", flush=True)
+
+
+# main path 12's depths, cut from the examples' 100,000 steps so that the phase fits its
+# 150 s: on an H100 at 700 W their full runs took 146.7 s (deepq, 682 env-steps/s) and
+# 30.5 s (ppo2) with the phase alone, and the host-bound rates halved inside the whole
+# script (325 and 1,719 env-steps/s)
+TRAIN_CARTPOLE_STEPS = 20_480  # 20 chunks of 1024
+CUSTOM_NETWORK_STEPS = 40_960  # 40 updates of 8 x 128
+
+
+def monitor_rows(stats, elapsed: float) -> list:
+    """The episodes that a run's monitor logged, oldest first, as monitor.csv rows: the
+    last min(episodes, 100) returns and lengths of its ring; ``t`` is the run's wall time
+    when the ring was read (the ring keeps no time an episode)."""
+    n_ep = int(stats.episodes)
+    ret, length = stats.ret_buffer.cpu().tolist(), stats.len_buffer.cpu().tolist()
+    cap = len(ret)
+    return [{"r": ret[i % cap], "l": int(length[i % cap]), "t": round(elapsed, 6)}
+            for i in range(max(n_ep - cap, 0), n_ep)]
+
+
+def examples_path(dev, card, kernels, counts, reset_counts, read_counts, recording_output,
+                  train_steps: int = TRAIN_CARTPOLE_STEPS,
+                  custom_steps: int = CUSTOM_NETWORK_STEPS):
+    """Main path 12, the examples and the results tools (phase 17 of the module's
+    docstring): train_cartpole's deepq and custom_network's ppo2 through the port's
+    ``learn`` at their widths, enjoy_cartpole's load, evaluation and video, K2 at this
+    path's two shapes, and the monitor files written, read back and plotted. Adds the
+    path's launch counts to ``counts`` and K2's times at its shapes to ``kernels``."""
+    import importlib.util
+
+    from baselines_tpu_torch.algos.common import build_env, evaluate
+    from baselines_tpu_torch.algos.dqn.dqn import learn as dqn_learn
+    from baselines_tpu_torch.algos.ppo.ppo import learn as ppo_learn
+    from baselines_tpu_torch.bench import monitor_io
+    from baselines_tpu_torch.core import logger
+    from baselines_tpu_torch.core.rng import Draws
+    from baselines_tpu_torch.envs.registry import make_env
+    from baselines_tpu_torch.envs.vec import VecMonitor
+    from baselines_tpu_torch.envs.video import record_video
+    from baselines_tpu_torch.examples import custom_network, enjoy_cartpole, train_cartpole
+    from baselines_tpu_torch.nn import networks
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    TimedOutput = timed_output(recording_output)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice12_")
+    path_counts = {"fused_cnn": 0, "take_rows": 0, "stratified_sample": 0}
+    try:
+        # a. train_cartpole's deepq (mlp, 64 hidden, 4 envs, a 50000-row ring) on the card;
+        # a chunk is 256 iterations of the 4 envs, and every iteration from step 1000 on
+        # trains on 32 rows (5 gathers)
+        kw = dict(train_cartpole.LEARN_KWARGS, total_timesteps=train_steps, seed=0,
+                  device=dev)
+        nchunks = train_steps // 1024
+        train_iters = sum(1 for k in range(1, 256 * nchunks + 1) if 4 * k >= 1000)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        recorder, chunk_times = TimedOutput(), []
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+        reset_counts()
+        start = time.perf_counter()
+        model = dqn_learn(chunk_timing=chunk_times, **kw)
+        torch.cuda.synchronize()
+        elapsed_a = time.perf_counter() - start
+        c = read_counts()
+        logger.reset()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = {"fused_cnn": 0, "take_rows": 5 * train_iters, "stratified_sample": 0}
+        require(c == want, f"train_cartpole launched {c}, expected {want}")
+        for k in c:
+            path_counts[k] += c[k]
+        stats_a = VecMonitor.get_stats(model.state.env_state)
+        require(model.state.t == 1024 * nchunks and len(recorder.rows) == nchunks
+                and all(math.isfinite(float(r["mean 100 episode reward"]))
+                        for r in recorder.rows), "train_cartpole: a logged row is missing "
+                "or its mean reward is not finite")
+        require(all(bool(torch.isfinite(p).all()) for p in model.policy.module.parameters()),
+                "train_cartpole: params not finite")
+        steady = 1024 * (nchunks - 1) / (chunk_times[-1] - chunk_times[0])
+        path = os.path.join(tmp, train_cartpole.MODEL_PATH)
+        model.save(path)
+        cut = "" if train_steps == train_cartpole.LEARN_KWARGS["total_timesteps"] else (
+            f" (cut from {train_cartpole.LEARN_KWARGS['total_timesteps']})")
+        means = [round(float(r["mean 100 episode reward"]), 1) for r in recorder.rows]
+        print(f"main path 12a [{card}]: train_cartpole's deepq (mlp 64, 4 envs, buffer 50000) "
+              f"on CartPole-v1, {train_steps} steps{cut}, {train_iters} training iterations, "
+              f"launches {c}; {elapsed_a:.2f} s with set-up = {train_steps / elapsed_a:.0f} "
+              f"env-steps/s, steady after the first 1024-step chunk {steady:.0f} env-steps/s; "
+              f"mean 100 episode reward by chunk {means[::max(1, len(means) // 10)]}, final "
+              f"{float(stats_a.mean_return):.2f} over {int(stats_a.episodes)} episodes; "
+              f"peak device memory {peak / 2**20:.2f} MiB; saved to "
+              f"{os.path.basename(path)} ({os.path.getsize(path)} bytes)", flush=True)
+
+        # b. enjoy_cartpole on that file: load (no training step), evaluate 1000
+        # deterministic steps of 4 envs, the same report as the trained model's bit for
+        # bit, then the video
+        reset_counts()
+        start = time.perf_counter()
+        loaded = dqn_learn(**dict(enjoy_cartpole.LOAD_KWARGS, load_path=path, device=dev))
+        c = read_counts()
+        require(c == {"fused_cnn": 0, "take_rows": 0, "stratified_sample": 0} and
+                all(torch.equal(a, b) for a, b in zip(model.policy.module.parameters(),
+                                                      loaded.policy.module.parameters())),
+                f"enjoy_cartpole: the loaded params differ from the saved ones (launches {c})")
+
+        def report(m):
+            return evaluate(m, build_env("CartPole-v1", 4, device=dev), Draws(0, dev),
+                            nsteps=enjoy_cartpole.EVAL_STEPS)
+
+        got = report(loaded)
+        elapsed_b = time.perf_counter() - start
+        want_report = report(model)
+        require(got == want_report, f"enjoy_cartpole: the loaded model's report {got}, the "
+                f"trained model's {want_report}")
+        video = os.path.join(tmp, enjoy_cartpole.VIDEO_PATH)
+        start = time.perf_counter()
+        record_video(loaded, make_env("CartPole-v1"), video,
+                     video_length=enjoy_cartpole.VIDEO_LENGTH)
+        video_s = time.perf_counter() - start
+        require(os.path.getsize(video) > 0, "enjoy_cartpole: the video is empty")
+        print(f"main path 12b [{card}]: enjoy_cartpole: loaded and evaluated "
+              f"{enjoy_cartpole.EVAL_STEPS} deterministic steps of 4 envs in {elapsed_b:.2f} s: "
+              f"mean episode reward {got[0]} (len {got[1]}) over {got[2]} episodes, the "
+              f"trained model's report bit for bit; {enjoy_cartpole.VIDEO_LENGTH} frames to "
+              f"{os.path.basename(video)} ({os.path.getsize(video)} bytes) in {video_s:.2f} s",
+              flush=True)
+        del loaded
+
+        # c. custom_network's ppo2 on the registered my_tiny_net (width 64, 8 envs x 128
+        # steps, lr 2.5e-3); 24 gathers an update (6 fields x 4 epochs)
+        nupdates = custom_steps // 1024
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        recorder = TimedOutput()
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+        reset_counts()
+        start = time.perf_counter()
+        model_c = ppo_learn(**dict(custom_network.LEARN_KWARGS, total_timesteps=custom_steps,
+                                   seed=0, log_interval=1, device=dev))
+        torch.cuda.synchronize()
+        elapsed_c = time.perf_counter() - start
+        c = read_counts()
+        logger.reset()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = {"fused_cnn": 0, "take_rows": 24 * nupdates, "stratified_sample": 0}
+        require(c == want, f"custom_network launched {c}, expected {want}")
+        for k in c:
+            path_counts[k] += c[k]
+        keys = ("loss/policy_loss", "loss/value_loss", "loss/policy_entropy", "loss/approxkl")
+        require(len(recorder.rows) == nupdates and all(
+            math.isfinite(float(r[k])) for r in recorder.rows for k in keys),
+            "custom_network: a logged loss is missing or not finite")
+        require(isinstance(model_c.policy.module.network, custom_network.MyTinyNet) and all(
+            bool(torch.isfinite(p).all()) for p in model_c.policy.module.parameters()),
+            "custom_network: the policy is not my_tiny_net or its params are not finite")
+        steady_c = 1024 * (nupdates - 1) / (recorder.times[-1] - recorder.times[0])
+        stats_c = VecMonitor.get_stats(model_c.state.env_state)
+        try:
+            networks.register("my_tiny_net")(custom_network.MyTinyNet)
+            duplicate = None
+        except ValueError as e:
+            duplicate = str(e)
+        require(duplicate == "duplicate network registration: 'my_tiny_net'",
+                f"a second my_tiny_net registration gave {duplicate!r}")
+        cut = "" if custom_steps == custom_network.LEARN_KWARGS["total_timesteps"] else (
+            f" (cut from {custom_network.LEARN_KWARGS['total_timesteps']})")
+        eprew = [round(float(r["eprewmean"]), 1) for r in recorder.rows]
+        print(f"main path 12c [{card}]: custom_network's ppo2 on my_tiny_net (width 64, 8 envs "
+              f"x 128 steps, lr 2.5e-3) on CartPole-v1, {nupdates} updates = {custom_steps} "
+              f"steps{cut}, launches {c}; {elapsed_c:.2f} s with set-up = "
+              f"{custom_steps / elapsed_c:.0f} env-steps/s, steady after the first update "
+              f"{steady_c:.0f} env-steps/s; finite losses (last policy_loss "
+              f"{float(recorder.rows[-1]['loss/policy_loss']):.5f}); eprewmean by update "
+              f"{eprew[::max(1, len(eprew) // 10)]}, final {float(stats_c.mean_return):.2f} "
+              f"over {int(stats_c.episodes)} episodes; peak device memory "
+              f"{peak / 2**20:.2f} MiB; a second my_tiny_net registration raised "
+              f"ValueError", flush=True)
+        counts["path12"] = path_counts
+
+        # d. K2 at this path's two shapes, against x[idx] and timed in turns against
+        # index_select: deepq's replay sample, 32 rows of the (50000, 4) f32 ring, and
+        # ppo2's epoch shuffle, (1024, 4) f32 obs by a 1024-row permutation
+        gen = torch.Generator(device=dev).manual_seed(17)
+        shapes = []
+        for what, rows, idx in (
+                ("train_cartpole's replay sample", 50000,
+                 torch.randint(0, 50000, (32,), device=dev, generator=gen)),
+                ("custom_network's epoch shuffle", 1024,
+                 torch.randperm(1024, device=dev, generator=gen))):
+            x = torch.randn((rows, 4), device=dev, generator=gen)
+            require(torch.equal(take_rows(x, idx), x[idx]), f"take_rows on {what} differs")
+            t, readings = turns_ms({"kernel": lambda: take_rows(x, idx),
+                                    "plain": lambda: x[idx],
+                                    "index_select": lambda: x.index_select(0, idx)}, 50,
+                                   rounds=3)
+            n = idx.numel()
+            bms, by = bound_ms(0, 2 * n * 16 + n * 8)
+            shape = f"{what}: f32 {tuple(x.shape)} by ({n},) int64"
+            shapes.append(dict(shape=shape, max_abs_err=0.0, ms=t["kernel"],
+                               plain_ms=t["plain"], bound_ms=bms, bound_by=by,
+                               library_ms=t["index_select"]))
+            print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, "
+                  f"plain x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} "
+                  f"ms, bound {bms:.7f} ms ({by}); in turns: "
+                  f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+        kernels["take_rows"]["path12_shapes"] = shapes
+
+        # e. one monitor.csv a run from the episodes its monitor logged, read back by both
+        # loaders and drawn by both plotters where the machine has pandas and matplotlib
+        # (host-side plotting libraries: no device work depends on them)
+        runs = {"deepq-CartPole-0": (stats_a, elapsed_a), "ppo2-CartPole-0": (stats_c,
+                                                                               elapsed_c)}
+        dirs, written = [], []
+        for run, (stats, elapsed) in runs.items():
+            d = os.path.join(tmp, "results", run)
+            os.makedirs(d)
+            writer = monitor_io.ResultsWriter(os.path.join(d, "0"), header={
+                "t_start": 0.0, "env_id": "CartPole-v1"})
+            rows = monitor_rows(stats, elapsed)
+            for row in rows:
+                writer.write_row(row)
+            writer.close()
+            with open(writer.f.name) as f:
+                lines = f.read().splitlines()
+            require(len(rows) == min(int(stats.episodes), 100) and len(lines) == len(rows) + 2
+                    and lines[1] == "r,l,t", f"{run}'s monitor.csv has {len(lines)} lines")
+            dirs.append(d)
+            written.append(f"{run} ({len(rows)} episodes)")
+        print(f"main path 12e [{card}]: monitor.csv written by ResultsWriter for "
+              f"{', '.join(written)}", flush=True)
+        have = {m: importlib.util.find_spec(m) is not None for m in ("pandas", "matplotlib")}
+        if have["pandas"]:
+            from baselines_tpu_torch.bench import plot_util
+
+            frames = [monitor_io.load_results(d) for d in dirs]
+            results = sorted(plot_util.load_results(os.path.join(tmp, "results")),
+                             key=lambda r: r.dirname)
+            require([r.dirname for r in results] == dirs and all(
+                f.equals(r.monitor) for f, r in zip(frames, results)) and [
+                list(f["r"]) for f in frames] == [[row["r"] for row in monitor_rows(
+                    stats, elapsed)] for stats, elapsed in runs.values()],
+                "the monitor files read back other rows, or the two loaders differ")
+            print(f"main path 12e [{card}]: read back by monitor_io.load_results and "
+                  f"plot_util.load_results, the same frames ({[len(f) for f in frames]} "
+                  "rows, the returns written)", flush=True)
+        if all(have.values()):
+            import matplotlib.pyplot as plt
+
+            from baselines_tpu_torch.bench import results_plotter
+
+            fig, axarr = plot_util.plot_results(results)
+            fig.savefig(os.path.join(tmp, "plot_util.png"))
+            plt.close(fig)
+            results_plotter.plot_results(dirs, 10 ** 9, results_plotter.X_TIMESTEPS,
+                                         "CartPole-v1")
+            plt.savefig(os.path.join(tmp, "results_plotter.png"))
+            plt.close("all")
+            sizes = [os.path.getsize(os.path.join(tmp, f))
+                     for f in ("plot_util.png", "results_plotter.png")]
+            require(all(n > 0 for n in sizes), "a plot is empty")
+            print(f"main path 12e [{card}]: plot_util.plot_results ({axarr.shape} axes) and "
+                  f"results_plotter.plot_results drawn to PNG ({sizes} bytes)", flush=True)
+        else:
+            missing = [m for m, ok in have.items() if not ok]
+            what = ("reading the monitor files back and plotting them" if not have["pandas"]
+                    else "plotting the monitor files")
+            print(f"main path 12e [{card}]: not run on this machine: {what} (needs "
+                  f"{' and '.join(missing)}, a host-side library); the CPU tests hold bench/ "
+                  "against the JAX package", flush=True)
+    finally:
+        logger.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -3041,13 +3333,17 @@ def main() -> int:
     with Phase("main path 11: the host side (the Atari chain, a host env under a mesh)"):
         host_side_path(dev, card, kernels, counts, reset_counts, read_counts, RecordingOutput)
 
+    with Phase("main path 12: the examples and the results tools"):
+        examples_path(dev, card, kernels, counts, reset_counts, read_counts, RecordingOutput)
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "shape", "launches", "launches_by_path",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape",
-             "path7_shapes", "path8_shapes", "path9_shapes", "path11_shapes")
+             "path7_shapes", "path8_shapes", "path9_shapes", "path11_shapes",
+             "path12_shapes")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

@@ -10,9 +10,9 @@ import pytest
 import torch
 from torch_parity import rel_err
 
-from baselines_tpu_torch.data import gae as tgae
-
-jgae = importlib.import_module("baselines_tpu.data.gae")  # the package re-exports gae()
+# both packages re-export gae(), which shadows the module's name in the package
+tgae = importlib.import_module("baselines_tpu_torch.data.gae")
+jgae = importlib.import_module("baselines_tpu.data.gae")
 
 T, N = 37, 5
 TOL = 1e-6

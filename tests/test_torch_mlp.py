@@ -104,11 +104,11 @@ def test_unported_networks_raise():
     """No network name of the JAX package is left unported: the names that raised
     ``NotImplementedError`` until item 4 build (each is held to the JAX network in
     tests/test_torch_networks.py); a name the JAX package does not know raises
-    ``KeyError``."""
+    ``ValueError``, as the JAX package's registry does."""
     for name in ("cnn_small", "impala_cnn", "conv_only", "lstm", "cnn_lstm"):
         net = get_network(name, ob_shape=(36, 36, 1))
         assert net.latent_size > 0
-    with pytest.raises(KeyError):
+    with pytest.raises(ValueError, match="unknown network 'no_such_net'"):
         get_network("no_such_net")
 
 
