@@ -304,6 +304,12 @@ class Model:
     def device(self) -> torch.device:
         return next(self.policy.module.parameters()).device
 
+    @property
+    def params(self) -> dict:
+        """The trained parameters (common.py:438-440): the policy module's named
+        parameters, the tensors themselves."""
+        return dict(self.policy.module.named_parameters())
+
     def initial_rnn_state(self, nenv: int):
         """The policy's zero carry for ``nenv`` envs, None for a feedforward policy."""
         return self.policy.initial_state(nenv)
@@ -553,7 +559,7 @@ def evaluate(model: Model, venv, draws, nsteps: int = 1000, deterministic: bool 
                 break
             w = getattr(w, "venv", None)
     obs, env_state = venv.reset(draws)
-    recurrent = getattr(policy, "is_recurrent", False)  # deepq's QPolicy has no carry
+    recurrent = policy.is_recurrent
     rnn_state = policy.initial_state(venv.num_envs) if recurrent else None
     done = torch.zeros((venv.num_envs,), dtype=torch.bool, device=venv.device)
     for _ in range(nsteps):

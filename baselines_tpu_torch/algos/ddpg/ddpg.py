@@ -152,6 +152,15 @@ class DDPGModel(Model):
     statistics, the variables the reference's save_variables writes
     (tf_util.py:345-372, ddpg.py:424-450)."""
 
+    @property
+    def params(self) -> dict:
+        """The actor's and the critic's named parameters and both running statistics
+        (ddpg.py:412-420)."""
+        s = self.state
+        return {"actor": dict(self.policy.module.named_parameters()),
+                "critic": dict(self.policy.critic.named_parameters()),
+                "obs_rms": s.obs_rms, "ret_rms": s.ret_rms}
+
     def _ckpt_tree(self) -> dict:
         s = self.state
         return {"actor": self.policy.module, "critic": self.policy.critic,

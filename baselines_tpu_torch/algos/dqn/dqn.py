@@ -120,7 +120,12 @@ class QPolicy:
     """The policy surface over a Q-net (dqn.py:85-132): epsilon-greedy ``step``, greedy
     ``mode_step`` and ``value``. ``q_values`` runs the module with autograd; the act
     step runs without, and for the bf16 ``cnn_s2d`` net its latent comes from the fused
-    CNN kernel on weights packed from the current params."""
+    CNN kernel on weights packed from the current params. A Q-policy has no carry:
+    ``initial_state`` is None, and ``step``, ``mode_step`` and ``value`` take the
+    arguments of ``Policy``'s (``packed``, ``rnn_state``, ``rnn_mask``; dqn.py:103,
+    122-130) and ignore them."""
+
+    is_recurrent = False
 
     def __init__(self, module: QNet, ob_space, n_actions: int):
         self.module = module
@@ -131,6 +136,9 @@ class QPolicy:
         """q-values of ``module`` (the online net by default) with autograd."""
         module = self.module if module is None else module
         return module(encode_observation(self.ob_space, obs))
+
+    def initial_state(self, batch_size: int) -> None:
+        return None
 
     @torch.no_grad()
     def act_q_values(self, obs: torch.Tensor) -> torch.Tensor:
@@ -146,17 +154,18 @@ class QPolicy:
         use_random = draws.uniform(greedy.shape, 0.0, 1.0) < eps
         return torch.where(use_random, random_actions, greedy)
 
-    def step(self, obs: torch.Tensor, draws):
+    def step(self, obs: torch.Tensor, draws, packed=None, rnn_state=None, rnn_mask=None):
         """(action, None, None): greedy, with its draws taken as epsilon-greedy's."""
         return self.eps_greedy(obs, draws, 0.0), None, None
 
     @torch.no_grad()
-    def mode_step(self, obs: torch.Tensor):
+    def mode_step(self, obs: torch.Tensor, packed=None, rnn_state=None, rnn_mask=None):
         q = self.act_q_values(obs)
         return torch.argmax(q, dim=-1).to(torch.int32), torch.max(q, dim=-1).values
 
     @torch.no_grad()
-    def value(self, obs: torch.Tensor) -> torch.Tensor:
+    def value(self, obs: torch.Tensor, packed=None, rnn_state=None,
+              rnn_mask=None) -> torch.Tensor:
         return torch.max(self.act_q_values(obs), dim=-1).values
 
 

@@ -4,9 +4,10 @@ baselines/gail/dataset/mujoco_dset.py).
 ``ExpertDataset`` holds (obs, acs) rows on the device: from arrays, or from an ``.npz``
 in the reference schema (``obs`` (E, T, do), ``acs`` (E, T, da)), the first
 ``traj_limitation`` trajectories kept when it is positive, then flattened to rows.
-``sample`` draws ``batch_size`` row indices uniformly with replacement and reads both
-fields through the row-gather kernel (``ops/gather.py``). f64 arrays are kept in f32, as
-the JAX package keeps them without x64.
+Arrays are placed on ``device``, the card unless the caller passes ``"cpu"``; tensors
+stay where they are. ``sample`` draws ``batch_size`` row indices uniformly with
+replacement and reads both fields through the row-gather kernel (``ops/gather.py``). f64
+arrays are kept in f32, as the JAX package keeps them without x64.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.ops.gather import take_rows
 
 
@@ -21,12 +23,12 @@ def _device_array(x, device) -> torch.Tensor:
     x = np.asarray(x)
     if x.dtype == np.float64:
         x = x.astype(np.float32)
-    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+    return torch.as_tensor(np.ascontiguousarray(x), device=resolve_device(device))
 
 
 class ExpertDataset:
     def __init__(self, obs=None, acs=None, expert_path: str | None = None,
-                 traj_limitation: int = -1, device="cpu"):
+                 traj_limitation: int = -1, device=None):
         if expert_path is not None:
             with np.load(expert_path, allow_pickle=True) as data:
                 obs, acs = data["obs"], data["acs"]

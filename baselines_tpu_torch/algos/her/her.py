@@ -161,6 +161,12 @@ class HERModel(Model):
     """``save``/``load`` of the actor and both normalizers, the ``--save_path`` payload
     of her.py:526."""
 
+    @property
+    def params(self) -> dict:
+        """The actor's named parameters and both normalizers (her.py:509-516)."""
+        return {"actor": dict(self.policy.module.named_parameters()),
+                "o_rms": self.state.o_rms, "g_rms": self.state.g_rms}
+
     def _params(self) -> dict:
         return {"actor": self.policy.module, "o_rms": self.state.o_rms,
                 "g_rms": self.state.g_rms}

@@ -94,6 +94,18 @@ def load_state(path: str, target=None, map_location="cpu"):
     return tree if target is None else from_tree(tree, target)
 
 
+def save_params(path: str, params) -> None:
+    """A params-only file (checkpoint.py:39-41): ``save_state`` of ``params``, a module
+    or a tree of tensors such as ``Model.params``."""
+    save_state(path, params)
+
+
+def load_params(path: str, target):
+    """``save_params``' file rebuilt into ``target`` (checkpoint.py:44-45): a module is
+    loaded in place, and each tensor lands on the device of the target's."""
+    return load_state(path, target)
+
+
 def periodic_path(logdir: str, step: int) -> str:
     d = osp.join(logdir, "checkpoints")
     os.makedirs(d, exist_ok=True)

@@ -7,7 +7,8 @@ formats are the human table, json-lines, csv and tensorboard scalars (written by
 format is made). When several processes form a
 ``torch.distributed`` group, ``dumpkvs`` is collective: the row is the count-weighted
 mean over the processes and process 0 alone writes it (logger.py:226-248);
-``configure_for_process`` gives the other processes a log of their own.
+``configure_for_process`` gives the other processes a log of their own. ``profile_kv``
+and ``profile`` add a block's wall-clock seconds to the row's ``wait_<scope>`` key.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import os
 import os.path as osp
 import sys
 import tempfile
+import time
 from collections import defaultdict
+from contextlib import contextmanager
 
 from baselines_tpu_torch.distributed.collectives import (host_weighted_mean, process_count,
                                                          process_index)
@@ -267,6 +270,11 @@ def logkv_mean(key, val):
     _get_current().logkv_mean(key, val)
 
 
+def logkvs(d):
+    for k, v in d.items():
+        logkv(k, v)
+
+
 def dumpkvs():
     return _get_current().dumpkvs()
 
@@ -277,6 +285,22 @@ def getkvs():
 
 def log(*args, level=INFO):
     _get_current().log(*args, level=level)
+
+
+def debug(*args):
+    log(*args, level=DEBUG)
+
+
+def info(*args):
+    log(*args, level=INFO)
+
+
+def warn(*args):
+    log(*args, level=WARN)
+
+
+def error(*args):
+    log(*args, level=ERROR)
 
 
 def set_level(level):
@@ -291,3 +315,29 @@ def reset():
     if Logger.CURRENT is not None:
         Logger.CURRENT.close()
     Logger.CURRENT = None
+
+
+@contextmanager
+def profile_kv(scopename):
+    """Add the block's wall-clock seconds to the row's ``wait_<scopename>`` (the host's
+    clock: device work the block only enqueues is not waited for)."""
+    logkey = "wait_" + scopename
+    tstart = time.time()
+    try:
+        yield
+    finally:
+        _get_current().name2val[logkey] += time.time() - tstart
+
+
+def profile(n):
+    """The decorator form of ``profile_kv``: ``@profile("name")`` adds each call's
+    seconds to ``wait_name``."""
+
+    def decorator_with_name(func):
+        def func_wrapper(*args, **kwargs):
+            with profile_kv(n):
+                return func(*args, **kwargs)
+
+        return func_wrapper
+
+    return decorator_with_name

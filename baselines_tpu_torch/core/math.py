@@ -4,6 +4,18 @@ from __future__ import annotations
 
 import torch
 
+from baselines_tpu_torch.data.gae import affine_reverse_scan
+
+
+def discount(x, gamma: float) -> torch.Tensor:
+    """y[t] = x[t] + gamma * x[t+1] + gamma^2 * x[t+2] + ... along axis 0
+    (math_util.py:8-27), the reverse recurrence y[t] = x[t] + gamma * y[t+1]. An f64
+    input is summed in f32, as the JAX package sums it without x64."""
+    x = torch.as_tensor(x)
+    if x.dtype == torch.float64:
+        x = x.to(torch.float32)
+    return affine_reverse_scan(torch.full_like(x, gamma), x, torch.zeros_like(x[0]))
+
 
 def explained_variance(ypred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """1 - Var[y - ypred] / Var[y], nan when Var[y] == 0 (math_util.py:29-47)."""

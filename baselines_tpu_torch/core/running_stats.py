@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.distributed.collectives import merge_moments
 from baselines_tpu_torch.distributed.mesh import check_mesh
 
@@ -35,6 +36,9 @@ class RunningMeanStd:
     @staticmethod
     def create(shape=(), epsilon: float = 1e-4, device=None,
                dtype: torch.dtype = torch.float32) -> "RunningMeanStd":
+        """Mean 0, variance 1 and count ``epsilon`` on ``device``, the card unless the
+        caller passes ``"cpu"``."""
+        device = resolve_device(device)
         return RunningMeanStd(
             mean=torch.zeros(shape, dtype=dtype, device=device),
             var=torch.ones(shape, dtype=dtype, device=device),

@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 
 
-def _reverse_affine(coefs: torch.Tensor, deltas: torch.Tensor, init: torch.Tensor):
-    """y_t = deltas_t + coefs_t * y_{t+1}, with y_T = init."""
+def affine_reverse_scan(coefs: torch.Tensor, deltas: torch.Tensor, init: torch.Tensor):
+    """y_t = deltas_t + coefs_t * y_{t+1} along axis 0, with y_T = init (gae.py:22-44):
+    the first-order linear recurrence under ``gae``, ``nstep_returns`` and
+    ``core.math.discount``, run backwards step by step."""
     out = torch.empty_like(deltas)
     y = init
     for t in range(deltas.shape[0] - 1, -1, -1):
@@ -28,7 +30,7 @@ def gae(rewards, values, dones, last_value, gamma: float, lam: float):
     nonterminal = 1.0 - dones.to(torch.float32)
     next_values = torch.cat([values[1:], last_value[None]], dim=0)
     deltas = rewards + gamma * next_values * nonterminal - values
-    advs = _reverse_affine(gamma * lam * nonterminal, deltas, torch.zeros_like(last_value))
+    advs = affine_reverse_scan(gamma * lam * nonterminal, deltas, torch.zeros_like(last_value))
     return advs, advs + values
 
 
@@ -36,7 +38,7 @@ def nstep_returns(rewards, dones, last_value, gamma: float):
     """Bootstrapped n-step returns R_t = r_t + gamma * R_{t+1} * (1 - done_t), with
     R_T = V(obs_T) (a2c/runner.py:58-69)."""
     nonterminal = 1.0 - dones.to(torch.float32)
-    return _reverse_affine(gamma * nonterminal, rewards, last_value)
+    return affine_reverse_scan(gamma * nonterminal, rewards, last_value)
 
 
 def discount_with_dones(rewards, dones, gamma: float):

@@ -98,6 +98,22 @@ def library():
         return lib
 
 
+def available() -> bool:
+    """Whether the engine builds and loads here (native/__init__.py:86-87). A query only:
+    ``NativeVecEnv`` and ``build_env`` still raise with the compiler's error where it
+    does not."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def supports(env_id: str) -> bool:
+    """Whether the engine serves ``env_id`` here (native/__init__.py:90-91)."""
+    return env_id in NATIVE_ENV_IDS and available()
+
+
 class NativeVecEnv:
     """A batch of ``num_envs`` native envs behind the host vec env interface, one C call
     a step (native/__init__.py:97-198). The spaces are those of the port's device env

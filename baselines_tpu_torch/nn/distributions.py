@@ -27,7 +27,36 @@ _HALF_LOG_2PI = float(np.float32(0.5) * np.log(np.float32(2.0 * np.pi)))
 _HALF_LOG_2PI_E = float(np.float32(0.5) * np.log(np.float32(2.0 * np.pi * np.e)))
 
 
-class CategoricalPd:
+class Pd:
+    """The base of the four distributions (distributions.py:23-43); ``logp`` is
+    ``-neglogp``."""
+
+    def flatparam(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def mode(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def neglogp(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def kl(self, other: "Pd") -> torch.Tensor:
+        raise NotImplementedError
+
+    def entropy(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def noise(self, draws):
+        raise NotImplementedError
+
+    def sample(self, noise) -> torch.Tensor:
+        raise NotImplementedError
+
+    def logp(self, x: torch.Tensor) -> torch.Tensor:
+        return -self.neglogp(x)
+
+
+class CategoricalPd(Pd):
     def __init__(self, logits: torch.Tensor):
         self.logits = logits
 
@@ -68,7 +97,7 @@ class CategoricalPd:
         return torch.argmax(self.logits - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
 
 
-class MultiCategoricalPd:
+class MultiCategoricalPd(Pd):
     """Independent categoricals over a MultiDiscrete space (distributions.py:86-117)."""
 
     def __init__(self, nvec, flat: torch.Tensor):
@@ -98,7 +127,7 @@ class MultiCategoricalPd:
         return torch.stack([p.sample(u) for p, u in zip(self.categoricals, us)], dim=-1)
 
 
-class DiagGaussianPd:
+class DiagGaussianPd(Pd):
     """flat = concat(mean, logstd) on the last axis (distributions.py:120-159)."""
 
     def __init__(self, flat: torch.Tensor):
@@ -137,7 +166,7 @@ class DiagGaussianPd:
         return self.mean + self.std * z
 
 
-class BernoulliPd:
+class BernoulliPd(Pd):
     """Independent Bernoullis from logits (distributions.py:162-196)."""
 
     def __init__(self, logits: torch.Tensor):
@@ -197,7 +226,7 @@ class PdType:
         else:
             raise NotImplementedError(f"no distribution for space {space!r}")
 
-    def pdfromflat(self, flat: torch.Tensor):
+    def pdfromflat(self, flat: torch.Tensor) -> Pd:
         if self.kind == "categorical":
             return CategoricalPd(flat)
         if self.kind == "multicategorical":

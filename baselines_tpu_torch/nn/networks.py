@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from baselines_tpu_torch.core.device import resolve_device
 from baselines_tpu_torch.core.registry import Registry
 
 _NETWORKS: Registry = Registry("network")
@@ -380,7 +381,10 @@ class RecurrentNetwork(nn.Module):
         self.nlstm = self.latent_size = int(nlstm)
 
     def initial_state(self, batch_size: int, device=None) -> torch.Tensor:
-        return torch.zeros((batch_size, 2 * self.nlstm), dtype=torch.float32, device=device)
+        """The zero carry of ``batch_size`` envs on ``device``, the card unless the caller
+        passes ``"cpu"``."""
+        return torch.zeros((batch_size, 2 * self.nlstm), dtype=torch.float32,
+                           device=resolve_device(device))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         if self.encoder is not None:

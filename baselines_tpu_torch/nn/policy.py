@@ -210,16 +210,16 @@ class Policy:
 def build_policy(ob_space, ac_space, network="mlp", *, device,
                  generator: torch.Generator | None = None, value_network: str | None = None,
                  estimate_q: bool = False, **network_kwargs) -> Policy:
-    """policies.build_policy (policy.py:143-175): ``Discrete``, ``MultiDiscrete`` or
-    ``Box`` observations, and ``Discrete``, ``MultiDiscrete``, ``Box`` or
-    ``MultiBinary`` actions. ``value_network`` None or "shared" shares the latent;
+    """policies.build_policy (policy.py:143-175): ``Discrete``, ``MultiDiscrete``,
+    ``Box`` or ``MultiBinary`` observations (every space ``encode_observation`` takes),
+    and ``Discrete``, ``MultiDiscrete``, ``Box`` or ``MultiBinary`` actions. ``value_network`` None or "shared" shares the latent;
     "copy" builds an independent value tower of the same architecture, initialised
     after the policy's. ``network`` is a registered name, a network class or factory, or
     a ready-made ``nn.Module`` (``get_network``); "copy" needs a name or a factory, since
     one module cannot be two towers with their own weights (a flax module can: the JAX
     package applies it to a second set of params). ``estimate_q`` puts a q head in place
     of the value head, for ``Discrete`` actions."""
-    if not isinstance(ob_space, (Discrete, MultiDiscrete, Box)):
+    if not isinstance(ob_space, (Discrete, MultiDiscrete, Box, MultiBinary)):
         raise NotImplementedError(f"the port's policies do not take {ob_space!r} observations")
     if value_network not in (None, "shared", "copy"):
         raise ValueError(f"value_network must be None, 'shared' or 'copy', got {value_network!r}")

@@ -199,6 +199,22 @@ Phases, each printing its seconds:
         (c) logged, read back by both loaders where the machine has pandas, and drawn by
         plot_util.plot_results and results_plotter.plot_results to PNG where it has
         matplotlib too (a line says what did not run and why).
+  18. main path 13, the API surface (``api_surface_path``):
+     a. gail on BoxIdentity-v0 at phase 13d's widths (8 envs, 512 steps a batch, g_step
+        1, d_step 3), 2 iterations, through the port's learn with no device argument,
+        from an ExpertDataset that the caller built from an expert .npz (5000 rows from
+        seed 0) with no device argument, so on the card: 12 gathers an iteration (2 for
+        each of the 5 value epochs, 2 for the expert sample), finite params; then the
+        gather on 512 rows of that (5000, 1) f32 table, bit for bit, timed in turns
+        against index_select;
+     b. a policy step of mlp on MultiBinary(16) observations with Discrete(4) actions at
+        batch 256 on the card, against the same params on the CPU: logits, values and
+        the neglogp of the card's sampled actions to 1e-5 relative;
+     c. with a Draws on the card: 10,000 samples of each space (Discrete, bounded,
+        u8 and unbounded Box, MultiDiscrete, MultiBinary, DictSpace), each on the card
+        and in its space; discount and affine_reverse_scan at (128, 1024) f32 on the
+        card against the CPU to 1e-6 relative; logger.profile_kv around one gather
+        launch, which writes its wait_ key.
   Every sub-phase prints its seconds, env-steps/s (set-up included) and peak memory.
 Then one JSON line with every kernel's numbers (launches summed over the main paths,
 and by path), and last the contract line {"ok": true, "device": {...}}. Any failed
@@ -1654,6 +1670,172 @@ def examples_path(dev, card, kernels, counts, reset_counts, read_counts, recordi
             print(f"main path 12e [{card}]: not run on this machine: {what} (needs "
                   f"{' and '.join(missing)}, a host-side library); the CPU tests hold bench/ "
                   "against the JAX package", flush=True)
+    finally:
+        logger.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def api_surface_path(dev, card, kernels, counts, reset_counts, read_counts,
+                     recording_output):
+    """Main path 13, the API surface (phase 18 of the module's docstring): gail from an
+    ExpertDataset the caller built with no device argument, a policy on MultiBinary
+    observations on the card against the CPU, and the spaces' samples, ``discount``,
+    ``affine_reverse_scan`` and ``logger.profile_kv`` on the card. Adds the path's launch
+    counts to ``counts`` and K2's times at the expert sample's shape to ``kernels``."""
+    import numpy as np
+
+    from baselines_tpu_torch.algos.gail.dataset import ExpertDataset
+    from baselines_tpu_torch.algos.gail.gail import learn as gail_learn
+    from baselines_tpu_torch.core import logger
+    from baselines_tpu_torch.core.math import discount
+    from baselines_tpu_torch.core.rng import Draws
+    from baselines_tpu_torch.data.gae import affine_reverse_scan
+    from baselines_tpu_torch.envs import spaces
+    from baselines_tpu_torch.nn.policy import build_policy
+    from baselines_tpu_torch.ops.gather import take_rows
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice13_")
+    try:
+        # a. gail from a dataset the caller built from an expert .npz, neither the
+        # dataset nor learn given a device: both on the card
+        expert = np.random.RandomState(0).uniform(-1, 1, size=(1, 5000, 1)).astype(np.float32)
+        path = os.path.join(tmp, "expert.npz")
+        np.savez(path, obs=expert, acs=expert.copy())
+        dataset = ExpertDataset(expert_path=path)
+        require(dataset.n == 5000 and dataset.obs.device.type == dataset.acs.device.type
+                == "cuda", f"ExpertDataset with no device put its rows on "
+                f"{dataset.obs.device}, expected the card")
+        iters = 2
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        start = time.perf_counter()
+        model = gail_learn(env_id="BoxIdentity-v0", expert_dataset=dataset, seed=0,
+                           num_envs=8, timesteps_per_batch=512, gamma=0.9, lam=0.97,
+                           max_kl=0.01, g_step=1, d_step=3, total_timesteps=iters * 512,
+                           log_interval=0)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        c = read_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        want = {"fused_cnn": 0, "take_rows": iters * (5 * 2 + 2), "stratified_sample": 0}
+        require(c == want, f"gail from a caller's ExpertDataset launched {c}, expected {want}")
+        require(model.state.iters == iters and model.device.type == "cuda" and all(
+            bool(torch.isfinite(p).all()) for p in model.params.values()),
+            f"gail: {model.state.iters} iterations on {model.device}, or params not finite")
+        path_counts = dict(c)
+        print(f"main path 13a [{card}]: gail mlp on BoxIdentity-v0 from a caller's "
+              f"ExpertDataset (5000 rows, no device argument, on {dataset.obs.device}), "
+              f"{iters} iterations of 8 x 64, launches {c}; {elapsed:.2f} s with set-up = "
+              f"{iters * 512 / elapsed:.0f} env-steps/s; peak device memory "
+              f"{peak / 2**20:.2f} MiB", flush=True)
+
+        # K2 at the expert sample's shape: 512 rows of the (5000, 1) f32 table
+        gen = torch.Generator(device=dev).manual_seed(18)
+        x = dataset.obs
+        idx = torch.randint(0, 5000, (512,), device=dev, generator=gen)
+        require(torch.equal(take_rows(x, idx), x[idx]), "take_rows on the expert rows differs")
+        t, readings = turns_ms({"kernel": lambda: take_rows(x, idx), "plain": lambda: x[idx],
+                                "index_select": lambda: x.index_select(0, idx)}, 50,
+                               rounds=3)
+        bms, by = bound_ms(0, 2 * 512 * 4 + 512 * 8)
+        shape = (f"gail's expert sample from a caller's dataset: f32 {tuple(x.shape)} by "
+                 "(512,) int64")
+        kernels["take_rows"]["path13_shapes"] = [dict(
+            shape=shape, max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"], bound_ms=bms,
+            bound_by=by, library_ms=t["index_select"])]
+        print(f"take_rows {shape}: bit-exact; device times: kernel {t['kernel']:.4f} ms, "
+              f"plain x[idx] {t['plain']:.4f} ms, index_select {t['index_select']:.4f} ms, "
+              f"bound {bms:.6f} ms ({by}); in turns: "
+              f"{lead(readings, 'kernel', 'index_select')} [{card}]", flush=True)
+
+        # b. mlp on MultiBinary(16) observations, the same params on the card and the CPU
+        ob_space, ac_space = spaces.MultiBinary(16), spaces.Discrete(4)
+        pols = {d: build_policy(ob_space, ac_space, "mlp", device=d,
+                                generator=torch.Generator().manual_seed(0))
+                for d in ("cpu", dev)}
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(
+            pols[dev].module.parameters(), pols["cpu"].module.parameters())),
+            "the two MultiBinary policies were built with other params")
+        obs = torch.randint(0, 2, (256, 16), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+        start = time.perf_counter()
+        action, value, neglogp = pols[dev].step(obs.to(dev), Draws(0, dev))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - start) * 1e3
+        with torch.no_grad():
+            pdflat_d, vf_d, _ = pols[dev].module(obs.to(dev))
+            pdflat_c, vf_c, _ = pols["cpu"].module(obs)
+        neglogp_c = pols["cpu"].pdtype.pdfromflat(pdflat_c).neglogp(action.cpu())
+        errs = {"logits": rel(pdflat_d.cpu(), pdflat_c), "value": rel(vf_d.cpu(), vf_c),
+                "step value": rel(value.cpu(), vf_c), "neglogp": rel(neglogp.cpu(), neglogp_c)}
+        require(action.shape == (256,) and action.device.type == "cuda"
+                and max(errs.values()) < 1e-5,
+                f"the MultiBinary policy on the card against the CPU: {errs}")
+        print(f"main path 13b [{card}]: mlp on MultiBinary(16) observations, Discrete(4) "
+              f"actions, a policy step at batch 256 in {step_ms:.2f} ms (the first, eager); "
+              "relative errors against the CPU "
+              f"{', '.join(f'{k} {v:.2g}' for k, v in errs.items())} (tol 1e-5)", flush=True)
+
+        # c. the spaces' samples, discount, affine_reverse_scan and profile_kv on the card
+        draws = Draws(0, dev)
+        space_list = {
+            "Discrete(5)": spaces.Discrete(5),
+            "Box(-1, 1, (3,))": spaces.Box(-1.0, 1.0, (3,)),
+            "Box(0, 255, (2, 3), u8)": spaces.Box(0, 255, (2, 3), np.uint8),
+            "Box(-inf, inf, (4,))": spaces.Box(-np.inf, np.inf, (4,)),
+            "MultiDiscrete([3, 7, 2])": spaces.MultiDiscrete([3, 7, 2]),
+            "MultiBinary(16)": spaces.MultiBinary(16),
+            "DictSpace": spaces.DictSpace({"observation": spaces.Box(-1.0, 1.0, (2,)),
+                                           "desired_goal": spaces.MultiBinary(2)})}
+        start = time.perf_counter()
+        for name, space in space_list.items():
+            samples = [space.sample(draws) for _ in range(10000)]
+            first = samples[0] if not isinstance(space, spaces.DictSpace) else \
+                samples[0]["desired_goal"]
+            require(first.device.type == "cuda", f"{name}.sample gave a tensor on "
+                    f"{first.device}")
+            if isinstance(space, spaces.DictSpace):
+                keys = list(samples[0])
+                host = {k: torch.stack([s[k] for s in samples]).cpu() for k in keys}
+                rows = [{k: host[k][i] for k in keys} for i in range(len(samples))]
+                require(keys == sorted(space.spaces), f"DictSpace's keys {keys}")
+            else:
+                rows = list(torch.stack(samples).cpu())
+            require(all(space.contains(r) for r in rows), f"a sample of {name} is outside it")
+        spaces_s = time.perf_counter() - start
+        gen = torch.Generator().manual_seed(2)
+        xs = torch.rand((128, 1024), generator=gen)
+        coefs = torch.rand((128, 1024), generator=gen) * 0.99
+        init = torch.rand((1024,), generator=gen)
+        got = {"discount": discount(xs.to(dev), 0.99).cpu(),
+               "affine_reverse_scan": affine_reverse_scan(coefs.to(dev), xs.to(dev),
+                                                          init.to(dev)).cpu()}
+        want = {"discount": discount(xs, 0.99),
+                "affine_reverse_scan": affine_reverse_scan(coefs, xs, init)}
+        scan_errs = {k: rel(got[k], want[k]) for k in got}
+        require(max(scan_errs.values()) < 1e-6, f"the scans on the card against the CPU: "
+                f"{scan_errs}")
+        recorder = recording_output()
+        logger.Logger.CURRENT = logger.Logger(dir=None, output_formats=[recorder])
+        reset_counts()
+        with logger.profile_kv("take_rows"):
+            take_rows(x, idx)
+            torch.cuda.synchronize()
+        c = read_counts()
+        row = logger.dumpkvs()
+        logger.reset()
+        require(c["take_rows"] == 1 and row.get("wait_take_rows", -1) > 0
+                and recorder.rows == [row], f"profile_kv around one gather: launches {c}, "
+                f"row {row}")
+        path_counts["take_rows"] += c["take_rows"]
+        counts["path13"] = path_counts
+        print(f"main path 13c [{card}]: 10000 samples of each of {len(space_list)} spaces on "
+              f"the card, each in its space, in {spaces_s:.2f} s; discount and "
+              f"affine_reverse_scan at (128, 1024) f32 against the CPU, relative errors "
+              f"{', '.join(f'{k} {v:.2g}' for k, v in scan_errs.items())} (bit for bit: "
+              f"{all(torch.equal(got[k], want[k]) for k in got)}); profile_kv around one "
+              f"gather wrote wait_take_rows = {row['wait_take_rows'] * 1e3:.3f} ms", flush=True)
     finally:
         logger.reset()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3336,6 +3518,10 @@ def main() -> int:
     with Phase("main path 12: the examples and the results tools"):
         examples_path(dev, card, kernels, counts, reset_counts, read_counts, RecordingOutput)
 
+    with Phase("main path 13: the API surface"):
+        api_surface_path(dev, card, kernels, counts, reset_counts, read_counts,
+                         RecordingOutput)
+
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts[path][name] for path in counts}
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -3343,7 +3529,7 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "cartpole_shapes", "path4_shapes", "path4_shape", "path5_shapes", "path5_shape",
              "path7_shapes", "path8_shapes", "path9_shapes", "path11_shapes",
-             "path12_shapes")
+             "path12_shapes", "path13_shapes")
     line = {"kernels": [{k: kernels[name][k] for k in order if k in kernels[name]}
                         for name in launchers]}
     print(card)

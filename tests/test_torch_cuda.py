@@ -804,3 +804,39 @@ def test_segment_tree_on_the_card_matches_the_cpu(dev):
             q = torch.from_numpy(rng.uniform(0, float(s_cpu.tree[1]), 512).astype(np.float32))
             assert torch.equal(tree.find_prefixsum_idx(s_dev, q.to(dev)).cpu(),
                                tree.find_prefixsum_idx(s_cpu, q))
+
+
+def test_api_defaults_and_samples_on_the_card(dev):
+    """With no device argument, ExpertDataset, RunningMeanStd.create and
+    RecurrentNetwork.initial_state put their tensors on the card; each space's sample
+    from a Draws on the card is a tensor there, in its space; a Q-policy's mode_step
+    ignores a carry and a mask."""
+    import numpy as np
+
+    from baselines_tpu_torch.algos.dqn.dqn import QNet, QPolicy
+    from baselines_tpu_torch.algos.gail.dataset import ExpertDataset
+    from baselines_tpu_torch.core.rng import Draws
+    from baselines_tpu_torch.core.running_stats import RunningMeanStd
+    from baselines_tpu_torch.envs import spaces
+    from baselines_tpu_torch.nn.networks import get_network
+
+    obs = np.zeros((5, 3), np.float32)
+    assert ExpertDataset(obs=obs, acs=obs).obs.device.type == "cuda"
+    assert RunningMeanStd.create((3,)).mean.device.type == "cuda"
+    lstm = get_network("lstm", ob_shape=(3,), nlstm=4)
+    assert lstm.initial_state(2).device.type == "cuda"
+    draws = Draws(0, dev)
+    for space in (spaces.Discrete(5), spaces.Box(-1.0, 1.0, (3,)), spaces.MultiBinary(4),
+                  spaces.Box(-np.inf, np.inf, (2,)), spaces.MultiDiscrete([2, 9])):
+        for _ in range(100):
+            x = space.sample(draws)
+            assert x.device.type == "cuda" and space.contains(x), space
+    goal = spaces.DictSpace({"b": spaces.MultiBinary(2), "a": spaces.Discrete(3)})
+    assert list(goal.sample(draws)) == ["a", "b"]
+    policy = QPolicy(QNet(get_network("mlp", ob_shape=(4,)), 3).to(dev),
+                     spaces.Box(-1.0, 1.0, (4,)), 3)
+    x = torch.randn((8, 4), device=dev)
+    action, q = policy.mode_step(x, None, torch.ones((8, 6), device=dev),
+                                 torch.ones(8, device=dev))
+    assert policy.initial_state(8) is None
+    assert torch.equal(action, policy.mode_step(x)[0]) and torch.equal(q, policy.mode_step(x)[1])

@@ -107,8 +107,8 @@ def test_behavior_cloning_matches_jax():
                                            device="cpu", value_network="copy", num_hidden=16))
     start = convert.obs_norm_policy_state_dict(jax.tree_util.tree_map(np.asarray, jparams))
     tpol.module.load_state_dict(start)
-    pretrain_bc(tpol, ExpertDataset(obs=obs, acs=acs), draws, max_iters=20, batch_size=32,
-                lr=1e-3)
+    pretrain_bc(tpol, ExpertDataset(obs=obs, acs=acs, device="cpu"), draws, max_iters=20,
+                batch_size=32, lr=1e-3)
     assert not draws.queue
     want_sd = convert.obs_norm_policy_state_dict(jax.tree_util.tree_map(np.asarray, want))
     moved = 0
@@ -185,9 +185,9 @@ def one_iteration():
     np.testing.assert_allclose(tobs.numpy(), np.asarray(jstart.obs), rtol=1e-6)
     state = gail.GAILTrainState(env_state=env_state, obs=tobs,
                                 last_done=torch.zeros((NENVS,), dtype=torch.bool),
-                                d_obs_rms=RunningMeanStd.create((1,)))
+                                d_obs_rms=RunningMeanStd.create((1,), device="cpu"))
     update_fn = gail.make_update_fn(tpol, tvenv, disc, vf_opt, d_opt, nsteps=NSTEPS, **HPARAMS)
-    exp_obs, exp_acs = ExpertDataset(obs=obs, acs=acs).sample(draws, NENVS * NSTEPS)
+    exp_obs, exp_acs = ExpertDataset(obs=obs, acs=acs, device="cpu").sample(draws, NENVS * NSTEPS)
     tnew, tmetrics = update_fn(state, exp_obs, exp_acs, draws)
     assert not draws.queue, "the port took fewer draws than the JAX update made"
     return dict(jnew=jax.device_get(jmodel.state), jmetrics=logged, tnew=tnew,
@@ -245,7 +245,7 @@ def test_expert_npz_loader_matches_jax(tmp_path):
     np.savez(path, obs=obs, acs=acs)
     for limit in (-1, 2):
         want = JaxExpertDataset(expert_path=path, traj_limitation=limit)
-        got = ExpertDataset(expert_path=path, traj_limitation=limit)
+        got = ExpertDataset(expert_path=path, traj_limitation=limit, device="cpu")
         assert got.n == want.n == 7 * (5 if limit < 0 else limit)
         assert got.obs.dtype == torch.float32
         np.testing.assert_array_equal(got.obs.numpy(), np.asarray(want.obs))
@@ -267,8 +267,9 @@ def test_checkpoint_keeps_adversary_iters_and_vecnormalize(tmp_path):
     cadence, and the VecNormalize statistics of a normalized env. A payload of the
     unfiltered policy's params alone loads into the unfiltered policy."""
     obs, acs = _identity_expert(300)
-    kwargs = dict(env_id="BoxIdentity-v0", expert_dataset=ExpertDataset(obs=obs, acs=acs),
-                  seed=0, num_envs=4, timesteps_per_batch=64, g_step=2, d_step=1,
+    kwargs = dict(env_id="BoxIdentity-v0",
+                  expert_dataset=ExpertDataset(obs=obs, acs=acs, device="cpu"), seed=0,
+                  num_envs=4, timesteps_per_batch=64, g_step=2, d_step=1,
                   num_hidden=8, adversary_hidden_size=8, vf_iters=1, cg_iters=2,
                   env_kwargs={"normalize": True}, log_interval=0, device="cpu")
     logger.configure(format_strs=[])
@@ -310,7 +311,7 @@ def test_collect_expert_and_pretraining_in_learn():
     seeds the policy's filter from the expert rows and clones them before training."""
     venv = build_env("BoxIdentity-v0", 4, device="cpu")
     obs, acs = _identity_expert(200)
-    kwargs = dict(env=venv, expert_dataset=ExpertDataset(obs=obs, acs=acs), seed=3,
+    kwargs = dict(env=venv, expert_dataset=ExpertDataset(obs=obs, acs=acs, device="cpu"), seed=3,
                   total_timesteps=0, num_hidden=8, device="cpu")
     plain = gail.learn(**kwargs)
     cloned = gail.learn(pretrained=True, bc_max_iters=3, **kwargs)

@@ -5,8 +5,11 @@ and ``value_network="copy"`` with a factory (two towers of their own weights) or
 module (refused: one torch module cannot be two towers, where a flax module applied to
 two sets of params can).
 
-Each test registers names of its own (``registry_test_*``), never registered by another
-test file, since a registry lives as long as the worker process.
+Each test registers names of its own (``registry_test_*``), and the ``fresh_registries``
+fixture takes every registration of a test back when it ends: a registry lives as long
+as the worker process, and a later test file (``test_torch_cartpole.py``) walks every
+registered env id. ``pytest -p no:randomly tests/test_torch_registry.py
+tests/test_torch_cartpole.py`` runs the two files in the order that showed it.
 """
 
 import flax.linen as fnn
@@ -39,6 +42,16 @@ from baselines_tpu_torch.nn.policy import build_policy
 
 # the port's names for the JAX package's, where they differ
 PORT_NAME = {"JaxEnv": "TorchEnv", "VecJaxEnv": "VecTorchEnv"}
+
+
+@pytest.fixture(autouse=True)
+def fresh_registries(monkeypatch):
+    """Each test registers into copies of both packages' env and network registries
+    (and the JAX env registry's type table), which are dropped when it ends."""
+    for registry in (env_registry._ENVS, networks._NETWORKS, jax_env_registry._ENVS,
+                     jax_networks._NETWORKS):
+        monkeypatch.setattr(registry, "_entries", dict(registry._entries))
+    monkeypatch.setattr(jax_env_registry, "_ENV_TYPES", dict(jax_env_registry._ENV_TYPES))
 
 
 class TinyNet(nn.Module):
@@ -167,6 +180,33 @@ def test_register_env_and_its_type():
             _error(lambda: jax_envs.register_env(env_id)(factory))
     assert env_registry.get_env_type("native:registry_test_Fixture-v0") == "testing"
     assert envs.env_names() == jax_envs.env_names()
+
+
+def test_registrations_end_with_their_test():
+    """The ids and the network the tests above registered are gone again, on both
+    sides."""
+    for env_id in ("registry_test_Pole-v0", "registry_test_Fixture-v0"):
+        assert not env_registry.is_torch_env(env_id)
+        assert not jax_env_registry.is_jax_env(env_id)
+        assert env_registry.get_env_type(env_id) == jax_env_registry.get_env_type(env_id) \
+            == "classic_control"
+    assert "registry_test_net" not in networks.network_names()
+    assert "registry_test_net" not in jax_networks.network_names()
+
+
+def test_failed_duplicate_registration_keeps_the_type():
+    """A second ``register_env`` of an id raises ValueError on both sides, and the port
+    keeps the type of the first registration. The JAX package records the new type
+    before its registry refuses the id (registry.py:20-22), so its ``get_env_type``
+    reports the type of the refused registration: a deliberate difference."""
+    env_id = "registry_test_Dup-v0"
+    envs.register_env(env_id, "testing")(lambda: make_cartpole(1))
+    jax_envs.register_env(env_id, "testing")(lambda: jax_make_cartpole(1))
+    for register in (envs.register_env, jax_envs.register_env):
+        with pytest.raises(ValueError, match="duplicate env registration"):
+            register(env_id, "mujoco")(lambda: None)
+    assert env_registry.get_env_type(env_id) == "testing"
+    assert jax_env_registry.get_env_type(env_id) == "mujoco"
 
 
 @pytest.mark.parametrize("pkg", ["core", "nn", "envs", "data", "ops"])

@@ -196,7 +196,8 @@ def test_normalize_state_helpers():
     _, state = venv.reset(None)
     ns = tvec.find_normalize_state(state)
     assert isinstance(ns, tvec.NormalizeState) and ns is state.inner
-    ob, ret = RunningMeanStd.create((3,), epsilon=5.0), RunningMeanStd.create((), epsilon=7.0)
+    ob = RunningMeanStd.create((3,), epsilon=5.0, device="cpu")
+    ret = RunningMeanStd.create((), epsilon=7.0, device="cpu")
     new = tvec.replace_normalize_stats(state, ob, ret)
     assert tvec.find_normalize_state(new).ob_rms is ob and tvec.find_normalize_state(new).ret_rms is ret
     assert isinstance(new, tvec.FrameStackState) and new.frames is state.frames
@@ -224,7 +225,7 @@ def test_running_mean_std_matches_jax():
     rng = np.random.RandomState(1)
     batches = [rng.randn(64, 3).astype(np.float32) * 3 + 1,
                rng.randn(5, 2, 3).astype(np.float32), rng.randn(3).astype(np.float32)]
-    mine, theirs = RunningMeanStd.create((3,)), JaxRMS.create((3,))
+    mine, theirs = RunningMeanStd.create((3,), device="cpu"), JaxRMS.create((3,))
     assert mine.count.dtype == torch.float32 and mine.count.shape == ()
     np.testing.assert_array_equal(mine.count.numpy(), np.asarray(theirs.count))
     for x in batches:

@@ -219,7 +219,7 @@ def task_collectives(mesh, spec, workdir):
 
     x = spec["x"]
     n = x.shape[0] // mesh.size
-    rms = RunningMeanStd.create((3,)).update(x[r * n:(r + 1) * n], axis_name=mesh)
+    rms = RunningMeanStd.create((3,), device="cpu").update(x[r * n:(r + 1) * n], axis_name=mesh)
     out["rms"] = (rms.mean, rms.var, rms.count)
 
     sharded = ShardedDraws(Draws(0, "cpu"), mesh)
